@@ -1,12 +1,12 @@
-"""difffe_tpu — TPU-native differentiable finite elements.
+"""difffe_tpu — batched differentiable finite elements in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 ``danieleschmidt/DiffFE-Physics-Lab`` (reference at /root/reference):
-differentiable FEM solves of −∇·(κ∇u)=f on 1D/2D P1 meshes, adjoint
+differentiable FEM solves of −∇·(κ∇u)=f on 1D/2D/3D P1 meshes, adjoint
 gradients through u = K⁻¹F, physics-loss neural training, and κ-recovery
-inverse problems — engineered for batched multi-chip TPU execution
-(pjit/shard_map over device meshes, custom-VJP solvers, matrix-free
-operators, Pallas kernels for the hot paths).
+inverse problems — engineered for batched multi-device GPU execution
+(jit/shard_map over device meshes, custom-VJP solvers, matrix-free
+operators, a Pallas-Triton kernel for the 1D inversion chain).
 
 Public API mirrors the reference's four exports
 (/root/reference/diffhe/__init__.py:12) plus the functional core.
@@ -35,7 +35,6 @@ __all__ = [
     "solve_poisson_structured_3d",
     "solve_poisson_structured_3d_batched",
     "choose_3d_path",
-    "choose_3d_grad_step",
     "solve_poisson_cg_ell_batched",
     "solve_poisson_cf_batched",
     "kappa_sgd_chain_cf",
@@ -78,8 +77,7 @@ def __getattr__(name):
         from .ops.pallas.fused_grad_cf_kernel import kappa_sgd_chain_cf
         return kappa_sgd_chain_cf
     if name in ("StructuredGrid3", "solve_poisson_structured_3d",
-                "solve_poisson_structured_3d_batched", "choose_3d_path",
-                "choose_3d_grad_step"):
+                "solve_poisson_structured_3d_batched", "choose_3d_path"):
         from .ops import stencil3d
         return getattr(stencil3d, name)
     raise AttributeError(f"module 'difffe_tpu' has no attribute {name!r}")

@@ -167,62 +167,70 @@ def bench_scenario(cfg, log=print):
     return result
 
 
-def invert_cmd(args):
-    """Production κ-field inversion on the routed fast paths (fit_kappa).
+def invert_workload(dim: int, n: int, batch: int, seed: int = 0,
+                    unstructured: bool = False):
+    """The ``invert`` workload: a float32 unit line/square/cube mesh with
+    ``n`` elements per side, random per-element κ_true ∈ [1.2, 1.8], the
+    shared forcing dim·π²·Πsin(πx), and converged observations.
 
-    Synthesizes the probe workload (random per-element κ_true, sinusoidal
-    forcing, converged u_data), runs ``fit_kappa`` with the measured
-    default policy, and reports throughput + honest converged eval loss +
-    κ error — the CLI face of VERDICT-r3 item 1.
-    """
+    ``unstructured`` (2D only) perturbs the interior nodes by up to 0.3·h
+    and drops the grid metadata, so nothing structured is left to exploit
+    and ``fit_kappa`` takes the edge-ELL route at B ≥ 128.  Returns
+    (mesh, fB, u_data, k_true)."""
     import math
-    import time
-    from .inverse import fit_kappa
     from .mesh import FEMesh
     from .solver import solve_poisson_batched
 
-    n = args.elements if args.elements is not None \
-        else {1: 30, 2: 64, 3: 16}[args.dim]
-    B, steps = args.batch, args.steps
-    if args.dim == 1:
+    if dim == 1:
         mesh = FEMesh.line(n_elements=n, dtype=jnp.float32)
-    elif args.dim == 2:
+    elif dim == 2:
         mesh = FEMesh.rectangle(nx=n, ny=n, dtype=jnp.float32)
     else:
         mesh = FEMesh.box(nx=n, ny=n, nz=n, dtype=jnp.float32)
-    if getattr(args, "unstructured", False):
-        # Arbitrary-connectivity scenario (VERDICT-r4 item 6): interior
-        # nodes randomly perturbed — no structure to exploit, so
-        # fit_kappa routes to the batch-minor edge-ELL path at B ≥ 128.
+    if unstructured:
         # grid=None is REQUIRED: grid metadata asserts factory geometry,
         # and keeping it on a perturbed mesh would mis-route to the
         # stencil solvers.
-        import dataclasses
-
         import numpy as np
-        if args.dim != 2:
+        if dim != 2:
             raise SystemExit("--unstructured supports --dim 2")
         nodes = np.asarray(mesh.nodes).copy()
-        rng = np.random.RandomState(args.seed)
+        rng = np.random.RandomState(seed)
         interior = np.asarray(mesh.bc_mask) < 0.5
         h = 1.0 / n
         nodes[interior] += rng.uniform(-0.3 * h, 0.3 * h,
                                        nodes[interior].shape)
         mesh = dataclasses.replace(mesh, nodes=jnp.asarray(
             nodes, mesh.dtype), grid=None)
-    coords = mesh.nodes
     pi = math.pi
-    f1 = (args.dim * pi ** 2)
-    f = f1 * jnp.prod(jnp.sin(pi * coords), axis=1)
-    fB = jnp.broadcast_to(f, (B, mesh.n_nodes))
+    f = (dim * pi ** 2) * jnp.prod(jnp.sin(pi * mesh.nodes), axis=1)
+    fB = jnp.broadcast_to(f, (batch, mesh.n_nodes))
     k_true = 1.2 + 0.6 * jax.random.uniform(
-        jax.random.PRNGKey(args.seed), (B, mesh.n_elements), jnp.float32)
-    if args.dim == 1:
+        jax.random.PRNGKey(seed), (batch, mesh.n_elements), jnp.float32)
+    if dim == 1:
         # exact band solve — the 1D observation generator
         u_data = solve_poisson_batched(mesh, k_true, fB, method="tridiag")
     else:
         u_data = solve_poisson_batched(mesh, k_true, fB,
                                        cg_tol=0.0, cg_maxiter=300)
+    return mesh, fB, u_data, k_true
+
+
+def invert_cmd(args):
+    """Production κ-field inversion on the routed fast paths (fit_kappa).
+
+    Synthesizes :func:`invert_workload`, runs ``fit_kappa`` with the
+    default policy, and reports throughput + honest converged eval loss
+    + κ error.
+    """
+    import time
+    from .inverse import fit_kappa
+
+    n = args.elements if args.elements is not None \
+        else {1: 30, 2: 64, 3: 16}[args.dim]
+    B, steps = args.batch, args.steps
+    mesh, fB, u_data, k_true = invert_workload(
+        args.dim, n, B, args.seed, getattr(args, "unstructured", False))
     jax.block_until_ready(u_data)
 
     kw = dict(steps=steps, lr=args.lr,
@@ -296,7 +304,10 @@ def serve_cmd(args):
 
 
 def main(argv=None):
+    from .utils.compile_cache import configure_compile_cache
     from .utils.config import BASELINE_CONFIGS, ScenarioConfig
+
+    configure_compile_cache()
 
     parser = argparse.ArgumentParser(prog="difffe_tpu")
     sub = parser.add_subparsers(dest="cmd", required=True)

@@ -5,12 +5,12 @@ Thermal-compliance formulation on the rectangle mesh: distribute material
 density ρ ∈ [0,1] per quad to minimize C(ρ) = FᵀU with K(κ(ρ))U = F under a
 volume constraint mean(ρ) = v̄.
 
-TPU-native structure:
+Structure:
   * densities live on the (ny, nx) quad grid; both triangles of a quad share
     one density (mesh.rectangle emits them interleaved, mesh.py factories);
   * SIMP interpolation κ = κ_min + ρᵖ(κ₀ − κ_min);
   * density filter = 2D convolution with a normalized cone kernel
-    (``lax.conv_general_dilated`` — an MXU/VPU-friendly stencil, instead of
+    (``lax.conv_general_dilated`` — a dense stencil op, instead of
     the sparse neighbor matrices CPU codes build);
   * sensitivities dC/dρ via the solver's custom-VJP adjoint (one extra
     solve), NOT an autograd tape over assembly;

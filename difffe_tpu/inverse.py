@@ -19,6 +19,7 @@ from typing import Callable, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 import optax
 
 from .mesh import FEMesh
@@ -92,6 +93,26 @@ def recover_kappa_scalar(
     return jnp.exp(log_k), losses
 
 
+def fit_route(dim: int, backend: str, shared_forcing: bool = True) -> str:
+    """The route ``fit_kappa`` takes for a factory ``FEMesh.line`` /
+    ``rectangle`` / ``box`` mesh of dimension ``dim`` on ``backend``
+    (``jax.default_backend()``).
+
+    1D with a shared forcing runs the Pallas-Triton SGD chain on a GPU
+    and the XLA closed form everywhere else (the kernel is compiled for
+    the card only; tests run it with ``interpret=True``).  2D and 3D run
+    the XLA stencil grad steps on every backend."""
+    if dim == 1:
+        if backend == "gpu" and shared_forcing:
+            return "cf_chain_triton"
+        return "cf_xla"
+    if dim == 2:
+        return "stencil2d_xla"
+    if dim == 3:
+        return "stencil3d_batchminor"
+    raise ValueError(f"no structured fit route for dim={dim}")
+
+
 def fit_kappa(
     mesh: FEMesh,
     f: jax.Array,
@@ -101,37 +122,33 @@ def fit_kappa(
     kappa0: Optional[jax.Array] = None,
     iters: Optional[int] = None,
     warm: Optional[bool] = None,
-    block_b: int = 8,
     eval_final: bool = True,
 ) -> Tuple[jax.Array, dict]:
-    """Per-element κ-field inversion on the measured production fast paths.
+    """Per-element κ-field inversion on the structured fast paths.
 
-    THE one inversion-loop API (VERDICT r3 item 1): routes the SGD loop
-    onto whichever structured kernel this mesh/size fits and encodes the
-    measured iteration policy, so default users get the probe-script
-    throughput without knowing the lore:
+    THE one inversion-loop API: routes the SGD loop onto the structured
+    solver this mesh fits (:func:`fit_route`) and encodes the iteration
+    policy, so default users get it without knowing the lore:
 
-    * ``FEMesh.line`` meshes (two-end Dirichlet) → the closed-form
-      chain kernel (ops/pallas/fused_grad_cf_kernel.py): exact
-      prefix-sum solves, 32 VMEM-resident SGD steps per launch — the
-      round-5 headline path (~2.0 G grad-solves/s at B=2M); no
-      iteration policy exists because the solve is exact.
-    * ``FEMesh.rectangle`` meshes → the whole-CG Pallas kernels
-      (``choose_2d_path``: fused one-launch ≤256², two-launch at 512²,
-      XLA stencil beyond) with **warm-started steps graded by grid
-      size** — iters 32 (≤64²) / 8 (128²) / 4 (≥256²), the
-      state-threaded lever (scripts/probe_2d_warm.py, probe_2d_mg256.py;
-      cold-32 is 45% worse at 64² at the same loss).
-    * ``FEMesh.box`` meshes → the 7-point-stencil grad step (Pallas
-      whole-CG kernel or XLA batch-minor via ``choose_3d_grad_step``)
-      with **cold steps graded by grid size** — iters 32 (≤16³) / 100
-      (≥32³), the κ-error-safe defaults from the identifiable controls
-      (probe_3d_control.py: at 16³ cold-32 ≡ cold-100; at 32³ cold-32
-      caps κ error 18× worse — iteration requirements grow with the
-      grid; warm state loses ~20% in 3D — scripts/probe_3d_warm.py).
+    * ``FEMesh.line`` meshes (two-end Dirichlet) → the exact closed-form
+      prefix-sum solve (ops/cf1d.py): with a shared forcing, 32 SGD steps
+      per launch of the Pallas-Triton chain kernel on a GPU
+      (ops/pallas/fused_grad_cf_kernel.py), else one XLA step per scan
+      iteration.  No iteration policy exists because the solve is exact.
+    * ``FEMesh.rectangle`` meshes → the XLA stencil grad step
+      (ops/stencil.kappa_mse_grad_step_2d) with **warm-started steps
+      graded by grid size** — iters 32 (≤64²) / 8 (128²) / 4 (≥256²);
+      cold-32 reaches a 45% worse converged eval loss than warm-32 at
+      64² after the same steps (docs/PERFORMANCE.md).
+    * ``FEMesh.box`` meshes → the batch-minor 7-point-stencil grad step
+      (ops/stencil3d.kappa_mse_grad_step_3d) with **cold steps graded by
+      grid size** — iters 32 (≤16³) / 100 (≥32³), the κ-error-safe
+      defaults from the identifiable controls
+      (scripts/probe_3d_control.py: at 16³ cold-32 ≡ cold-100; at 32³
+      cold-32 caps κ error 18× worse — iteration requirements grow with
+      the grid; warm starts did not help in 3D).
     * any other mesh with B ≥ 128 → the batch-minor edge-ELL CG route
-      (``generic_ell_batchminor``, Adam on log κ — measured 2.0× the
-      batch-leading path at B=256 / 4k DOF).
+      (``generic_ell_batchminor``, Adam on log κ).
     * anything else → the generic Adam field recovery
       (:func:`recover_kappa_field`).
 
@@ -141,11 +158,11 @@ def fit_kappa(
         (flat facade layout; a single (n_nodes,) scenario is promoted to
         B=1).
     steps : SGD steps.
-    lr : SGD learning rate.  Defaults to the probe-tuned values (2D: 30.0
-        with the per-scenario-mean cotangent scale; 3D: 100.0, tuned at
-        B=256 — the 3D loss averages over the batch, so rescale lr when
-        B differs by orders of magnitude).
-    iters, warm : override the measured per-step CG iteration count and
+    lr : SGD learning rate.  Defaults to the tuned values (1D and 2D:
+        30.0 with the per-scenario-mean cotangent scale; 3D: 100.0, tuned
+        at B=256 — the 3D loss averages over the batch, so the default
+        rescales lr by B/256).
+    iters, warm : override the per-step CG iteration count and
         warm-start policy (defaults 2D: graded 32/8/4 with warm=True;
         3D: graded 32/100 with warm=False).
     eval_final : additionally run one CONVERGED solve at the final κ and
@@ -178,9 +195,9 @@ def fit_kappa(
 
     if grid is None or mesh.dim not in (2, 3):
         if B >= 128 and mesh.dim in (2, 3):
-            # measured boundary (probe_unstructured.py): the batch-minor
-            # edge-ELL CG wins once the scenario batch fills the lane
-            # axis — 2.0× the batch-leading path at B=256 / 4k DOF
+            # batch-minor edge-ELL CG once the scenario batch is large
+            # (the threshold is a layout rule for the benchmark to
+            # re-decide, ROADMAP)
             return _fit_kappa_ell(mesh, f, u_data, steps, lr, kappa0,
                                   iters, eval_final)
         kappa, hist = recover_kappa_field(mesh, f, u_data,
@@ -195,7 +212,7 @@ def fit_kappa(
 
     if mesh.dim == 2:
         return _fit_kappa_2d(mesh, grid, f, u_data, steps, lr, kappa0,
-                             iters, warm, block_b, eval_final)
+                             iters, warm, eval_final)
     return _fit_kappa_3d(mesh, grid, f, u_data, steps, lr, kappa0,
                          iters, warm, eval_final)
 
@@ -204,67 +221,33 @@ import functools as _ft
 
 
 @_ft.lru_cache(maxsize=64)
-def _build_loop_2d(grid, path, iters, warm, block_b, lr, scale, steps):
+def _build_loop_2d(grid, iters, warm, lr, scale, steps):
     """Jitted 2D SGD inversion loop, CACHED on the static configuration —
     repeated fit_kappa calls with the same shapes hit the same
     executable (the CLI timing run relies on this)."""
-    from .ops.pallas.stencil_cg_kernel import (
-        fused_kappa_mse_step_2d, kappa_mse_step_2d_two_launch)
-    from .ops.stencil import solve_poisson_structured
+    from .ops.stencil import kappa_mse_grad_step_2d
 
-    if path == "fused":
-        step_fn = fused_kappa_mse_step_2d
-    elif path == "two_launch":
-        step_fn = kappa_mse_step_2d_two_launch
-    else:
-        step_fn = None        # XLA stencil path, value_and_grad below
+    def step(args, kl, ku, state):
+        fg, g0, ug = args
+        lp, (gl, gu), state = kappa_mse_grad_step_2d(
+            grid, (kl, ku), fg, g0, ug, iters, scale=scale,
+            warm_state=state if warm else None, return_state=True)
+        # history in MSE units (mean over scenarios AND nodes), so it is
+        # directly comparable to the converged ``eval_loss``
+        return (kl - lr * gl, ku - lr * gu, state), \
+            (scale / 2.0) * lp.mean()
 
-    if step_fn is not None:
-        def body(args, carry, _):
-            fg, g0, ug = args
-            kl, ku, state = carry
-            lp, (gl, gu), _, state = step_fn(
-                grid, (kl, ku), fg, g0, ug, iters=iters, block_b=block_b,
-                scale=scale, warm_state=state if warm else None,
-                return_state=True)
-            # history in MSE units (mean over scenarios AND nodes), so it
-            # is directly comparable to the converged ``eval_loss``
-            return (kl - lr * gl, ku - lr * gu, state), \
-                (scale / 2.0) * lp.mean()
+    def body(args, carry, _):
+        return step(args, *carry)
 
-        @jax.jit
-        def loop(kl, ku, fg, g0, ug):
-            # cold first step supplies the state structure for the scan
-            lp0, (gl0, gu0), _, state0 = step_fn(
-                grid, (kl, ku), fg, g0, ug, iters=iters, block_b=block_b,
-                scale=scale, return_state=True)
-            carry = (kl - lr * gl0, ku - lr * gu0, state0)
-            (kl, ku, _), losses = jax.lax.scan(
-                _ft.partial(body, (fg, g0, ug)), carry, None,
-                length=max(steps - 1, 0))
-            loss0 = (scale / 2.0) * lp0.mean()
-            return kl, ku, jnp.concatenate([loss0[None], losses])
-    else:
-        @jax.jit
-        def loop(kl, ku, fg, g0, ug):
-            B = fg.shape[0]
-
-            def loss_fn(klu):
-                u = solve_poisson_structured(grid, klu, fg, g0, 0.0, iters)
-                d = u - ug
-                return (scale / 2.0) * jnp.sum(d * d)
-
-            def body(carry, _):
-                kl, ku = carry
-                loss, (gl, gu) = jax.value_and_grad(loss_fn)((kl, ku))
-                # objective keeps the per-scenario cotangent scale (same
-                # gradient magnitude as the kernel paths); history in
-                # MSE units
-                return (kl - lr * gl, ku - lr * gu), loss / B
-
-            (kl, ku), losses = jax.lax.scan(body, (kl, ku), None,
-                                            length=steps)
-            return kl, ku, losses
+    @jax.jit
+    def loop(kl, ku, fg, g0, ug):
+        # cold first step supplies the state structure for the scan
+        carry, loss0 = step((fg, g0, ug), kl, ku, None)
+        (kl, ku, _), losses = jax.lax.scan(
+            _ft.partial(body, (fg, g0, ug)), carry, None,
+            length=max(steps - 1, 0))
+        return kl, ku, jnp.concatenate([loss0[None], losses])
 
     return loop
 
@@ -275,42 +258,32 @@ def _build_eval_2d(grid, maxiter):
 
     @jax.jit
     def ev(kl, ku, fg, g0, ug):
-        u = solve_poisson_structured(grid, (kl, ku), fg, g0, 0.0, maxiter)
+        u = jax.vmap(lambda a, b, ff: solve_poisson_structured(
+            grid, (a, b), ff, g0, 0.0, maxiter))(kl, ku, fg)
         return jnp.mean((u - ug) ** 2)
 
     return ev
 
 
 def _fit_kappa_2d(mesh, grid, f, u_data, steps, lr, kappa0, iters, warm,
-                  block_b, eval_final):
-    from .ops.pallas.stencil_cg_kernel import choose_2d_path
+                  eval_final):
     from .ops.stencil import kappa_lu_from_elements
 
     B = f.shape[0]
     H, W = grid.node_shape
     if iters is None:
-        # Measured per-step warm-iteration policy (converged-eval gated):
-        # 64² — warm-32 is the accuracy-safe point (cold-32 is 45% worse;
-        # warm-16 costs ~6% loss — probe_2d_warm.py); 128² — warm-8 beats
-        # warm-32 on BOTH rate and eval loss (30.4k vs 12.4k, 1.13e-2 vs
-        # 1.30e-2; warm-4 is better still — probe ladder 2026-08-21);
-        # ≥256² — warm-4 matches-or-beats warm-32 (12.4k at 256², 5.0k
-        # at 512² — probe_2d_mg256.py).  The trend: bigger grids carry
-        # proportionally more of the solution in the warm state per SGD
-        # step.  The two-level coarse-grid correction was measured
-        # NEGATIVE at 256² (XLA overhead unrepaid).
+        # Per-step warm-iteration policy (converged-eval gated): 64² —
+        # warm-32 is the accuracy-safe point (cold-32 is 45% worse,
+        # warm-16 costs ~6% loss); 128² — warm-8 matches warm-32's eval
+        # loss (1.13e-2 vs 1.30e-2); ≥256² — warm-4 matches-or-beats
+        # warm-32.  Bigger grids carry proportionally more of the
+        # solution in the warm state per SGD step.
         n_side = max(grid.nx, grid.ny)
         iters = 32 if n_side <= 64 else (8 if n_side <= 128 else 4)
-    if max(grid.nx, grid.ny) > 64 and block_b > 1:
-        # multi-scenario VMEM blocks are measured-good only through 64²;
-        # every ≥128² probe ran block_b=1 (larger blocks at 129×256
-        # planes fail the remote Mosaic compile despite fitting the
-        # 20 MB estimate — the budget was calibrated at block_b=1)
-        block_b = 1
     warm = True if warm is None else warm
     lr = 30.0 if lr is None else lr
     # per-scenario-mean cotangent scale → gradient magnitude independent
-    # of B (lr tuned once at this scale, scripts/probe_2d_warm.py)
+    # of B (lr tuned once at this scale)
     scale = 2.0 / (H * W)
     fg = f.reshape(B, H, W)
     ug = u_data.reshape(B, H, W)
@@ -323,16 +296,11 @@ def _fit_kappa_2d(mesh, grid, f, u_data, steps, lr, kappa0, iters, warm,
             grid, jnp.broadcast_to(jnp.asarray(kappa0, mesh.dtype),
                                    (B, mesh.n_elements)))
 
-    path = choose_2d_path(grid, block_b=block_b,
-                          itemsize=jnp.dtype(mesh.dtype).itemsize)
-    if path == "two_launch":
-        block_b = 1
-    loop = _build_loop_2d(grid, path, iters, warm, block_b,
-                          float(lr), float(scale), steps)
+    loop = _build_loop_2d(grid, iters, warm, float(lr), float(scale), steps)
     kl, ku, losses = loop(kl0, ku0, fg, g0, ug)
     kappa = jnp.stack([kl, ku], axis=-1).reshape(B, mesh.n_elements)
-    info = {"path": f"stencil2d_{path}", "iters": iters, "warm": warm,
-            "loss_history": losses, "eval_loss": None}
+    info = {"path": fit_route(2, jax.default_backend()), "iters": iters,
+            "warm": warm, "loss_history": losses, "eval_loss": None}
     if eval_final:
         ev = _build_eval_2d(grid, max(4 * iters, 256))
         info["eval_loss"] = float(ev(kl, ku, fg, g0, ug))
@@ -343,10 +311,9 @@ def _fit_kappa_ell(mesh, f, u_data, steps, lr, kappa0, iters, eval_final):
     """Generic-mesh inversion on the batch-minor edge-ELL path (B ≥ 128).
 
     Adam on log κ (positivity), fixed-trip CG through the gather-only
-    operator — the measured fastest arbitrary-connectivity route
-    (docs/PERFORMANCE.md 'Unstructured meshes').  The jitted loop closes
-    over the mesh's gather tables, so repeat calls with a different mesh
-    recompile (the structured paths are the cached hot production)."""
+    operator (docs/PERFORMANCE.md 'Unstructured meshes').  The jitted
+    loop closes over the mesh's gather tables, so repeat calls with a
+    different mesh recompile (the structured paths are cached)."""
     import optax
 
     from .ops.assembly import assemble_load
@@ -391,50 +358,61 @@ def _fit_kappa_ell(mesh, f, u_data, steps, lr, kappa0, iters, eval_final):
 
 
 @_ft.lru_cache(maxsize=64)
-def _build_loop_1d(n_full, k, rem, lr, scale, block_lanes, u_l, u_r,
-                   B, n, ne):
+def _build_loop_1d_chain(n_full, k, rem, lr, scale, interpret):
     """Jitted 1D chain-kernel SGD loop, cached on the static config.
 
-    The closed-form chain kernel runs ``k`` VMEM-resident SGD steps per
-    launch (ops/pallas/fused_grad_cf_kernel.py); the loop scans n_full
-    launches plus one remainder launch so exactly n_full·k + rem steps
-    execute.  Loss history is per-LAUNCH (the kernel reports the last
-    inner step's loss)."""
+    The chain kernel runs ``k`` SGD steps per launch; the loop scans
+    n_full launches plus one remainder launch so exactly n_full·k + rem
+    steps execute.  Loss history is per LAUNCH (the kernel reports the
+    last inner step's loss)."""
     from .ops.pallas.fused_grad_cf_kernel import kappa_sgd_chain_cf
 
     @jax.jit
-    def loop(keT, cols, lm, udT):
-        aux = dict(cols=cols, lm=lm, udT=udT, B=B, ne=ne, n=n,
-                   u_l=u_l, u_r=u_r, block_lanes=block_lanes)
+    def loop(keP, ops):
+        def launch(keP, _):
+            lp, keP = kappa_sgd_chain_cf(keP, ops, k, lr, scale=scale,
+                                         interpret=interpret)
+            return keP, lp.mean() / ops.n
 
-        def launch(keT, _):
-            lp, keT2 = kappa_sgd_chain_cf(keT, aux, k, lr, scale=scale)
-            return keT2, lp[0, :B].mean() / n
-
-        keT, hist = jax.lax.scan(launch, keT, None, length=n_full)
+        keP, hist = jax.lax.scan(launch, keP, None, length=n_full)
         if rem:
-            lp, keT = kappa_sgd_chain_cf(keT, aux, rem, lr, scale=scale)
-            hist = jnp.concatenate([hist, lp[0, :B].mean()[None] / n])
-        return keT, hist
+            lp, keP = kappa_sgd_chain_cf(keP, ops, rem, lr, scale=scale,
+                                         interpret=interpret)
+            hist = jnp.concatenate([hist, lp.mean()[None] / ops.n])
+        return keP, hist
 
     return loop
 
 
-def _fit_kappa_1d(mesh, f, u_data, steps, lr, kappa0, eval_final):
-    """1D per-element inversion on the closed-form chain kernel — the
-    round-5 headline path (flux telescoping = exact prefix-sum solves;
-    32 VMEM-resident SGD steps per launch; bench.py configuration,
-    measured ~2.0 G grad-solves/s at B=2M).
+@_ft.lru_cache(maxsize=64)
+def _build_loop_1d_xla(steps, lr, scale, u_l, u_r):
+    """Jitted 1D closed-form SGD loop (one XLA step per scan iteration),
+    cached on the static config."""
+    from .ops.cf1d import cf_step
 
-    Shared forcing routes to the Pallas chain; per-scenario forcings
-    take the XLA closed form (ops/cf1d.kappa_mse_step_cf) in a jitted
-    scan — both exact, so there is no iteration policy to encode.
-    lr defaults to 30.0 with the B-independent per-scenario scale 2/n
-    (convergence measured in scripts/probe_cf_lr.py)."""
+    @jax.jit
+    def loop(ke, hs, F, u_data):
+        def body(ke, _):
+            lp, g = cf_step(hs, ke, F, u_data, u_l, u_r, scale)
+            return ke - lr * g, lp.mean() / u_data.shape[-1]
+
+        return jax.lax.scan(body, ke, None, length=steps)
+
+    return loop
+
+
+def _fit_kappa_1d(mesh, f, u_data, steps, lr, kappa0, eval_final,
+                  route=None, interpret=False):
+    """1D per-element inversion on the exact closed form (ops/cf1d.py).
+
+    ``route`` defaults to :func:`fit_route` on the current backend:
+    ``"cf_chain_triton"`` (shared forcing on a GPU: the Pallas-Triton
+    chain kernel, 32 SGD steps per launch) or ``"cf_xla"``
+    (ops/cf1d.kappa_mse_step_cf in a jitted scan, one step per
+    iteration).  Both are exact, so there is no iteration policy.  lr
+    defaults to 30.0 with the B-independent per-scenario scale 2/n."""
     from .ops.assembly import assemble_load
-    from .ops.cf1d import kappa_mse_step_cf
-    from .ops.pallas.fused_grad_cf_kernel import (cf_packed_operands,
-                                                  cf_unpack)
+    from .ops.cf1d import _element_widths
 
     B = f.shape[0]
     ne = mesh.n_elements
@@ -445,74 +423,61 @@ def _fit_kappa_1d(mesh, f, u_data, steps, lr, kappa0, eval_final):
         else jnp.broadcast_to(jnp.asarray(kappa0, mesh.dtype), (B, ne))
 
     f_shared = bool(jax.device_get((f == f[:1]).all())) if B > 1 else True
-    if f_shared:
-        Fs = assemble_load(mesh, f[0])
-        bl = 2048 if B >= 2048 else 512
-        keT, aux = cf_packed_operands(mesh, ke0, Fs, u_data,
-                                      block_lanes=bl)
+    if route is None:
+        route = fit_route(1, jax.default_backend(), f_shared)
+    F = assemble_load(mesh, f[0] if f_shared else f)
+    hs = jnp.asarray(_element_widths(mesh), mesh.dtype)
+    bc = np.asarray(mesh.bc_values, np.float64)
+    u_l, u_r = float(bc[0]), float(bc[-1])
+    if route == "cf_chain_triton":
+        if not f_shared:
+            raise ValueError("the chain kernel needs a shared forcing")
+        from .ops.pallas.fused_grad_cf_kernel import (cf_packed_operands,
+                                                      cf_unpack)
+        keP, ops = cf_packed_operands(mesh, ke0, F, u_data)
         k = min(32, steps)
-        loop = _build_loop_1d(steps // k, k, steps % k, lr, scale, bl,
-                              aux["u_l"], aux["u_r"], B, n, ne)
-        keT, hist = loop(keT, aux["cols"], aux["lm"], aux["udT"])
-        kappa = cf_unpack(keT, aux)
-        path = "cf_chain_pallas"
+        loop = _build_loop_1d_chain(steps // k, k, steps % k, lr, scale,
+                                    bool(interpret))
+        keP, hist = loop(keP, ops)
+        kappa = cf_unpack(keP, ops)
+    elif route == "cf_xla":
+        loop = _build_loop_1d_xla(steps, lr, scale, u_l, u_r)
+        kappa, hist = loop(ke0, hs, F, u_data)
     else:
-        FB = assemble_load(mesh, f)
+        raise ValueError(f"unknown 1D fit route {route!r} "
+                         "(expected 'cf_chain_triton' or 'cf_xla')")
 
-        @jax.jit
-        def loop(ke):
-            def body(ke, _):
-                lp, g = kappa_mse_step_cf(mesh, ke, FB, u_data,
-                                          scale=scale)
-                return ke - lr * g, lp.mean() / n
-
-            return jax.lax.scan(body, ke, None, length=steps)
-
-        kappa, hist = loop(ke0)
-        path = "cf_xla"
-
-    info = {"path": path, "iters": None, "warm": None,
+    info = {"path": route, "iters": None, "warm": None,
             "loss_history": hist, "eval_loss": None}
     if eval_final:
-        from .ops.cf1d import solve_poisson_cf_batched
-        u = solve_poisson_cf_batched(mesh, kappa, f)
-        info["eval_loss"] = float(jnp.mean((u - u_data) ** 2))
+        info["eval_loss"] = float(_eval_1d(kappa, hs, F, u_data, u_l, u_r))
     return kappa, info
 
 
+@_ft.partial(jax.jit, static_argnames=("u_l", "u_r"))
+def _eval_1d(kappa, hs, F, u_data, u_l, u_r):
+    from .ops.cf1d import cf_step
+
+    lp, _ = cf_step(hs, kappa, F, u_data, u_l, u_r, 0.0)
+    return jnp.sum(lp) / (lp.shape[0] * u_data.shape[-1])
+
+
 @_ft.lru_cache(maxsize=64)
-def _build_loop_3d(grid, iters, warm, lr, steps, path, block_b=1):
+def _build_loop_3d(grid, iters, warm, lr, steps):
     from .ops.stencil3d import kappa_mse_grad_step_3d
-
-    if path == "pallas":
-        from .ops.pallas.stencil3d_cg_kernel import \
-            fused_kappa_mse_step_3d_pallas
-
-        n_nodes = (grid.nx + 1) * (grid.ny + 1) * (grid.nz + 1)
-
-        def step(k, fg, g0, ug, state):
-            B = fg.shape[0]
-            lp, gk, _, state = fused_kappa_mse_step_3d_pallas(
-                grid, k, fg, g0, ug, iters=iters, block_b=block_b,
-                scale=2.0 / (B * n_nodes),
-                warm_state=state if warm else None, return_state=True)
-            return lp.mean() / n_nodes, gk, state
-    else:
-        def step(k, fg, g0, ug, state):
-            loss, gk, state = kappa_mse_grad_step_3d(
-                grid, k, fg, g0, ug, iters,
-                warm_state=state if warm else None, return_state=True)
-            return loss, gk, state
 
     def body(args, carry, _):
         fg, g0, ug = args
         k, state = carry
-        loss, gk, state = step(k, fg, g0, ug, state)
+        loss, gk, state = kappa_mse_grad_step_3d(
+            grid, k, fg, g0, ug, iters,
+            warm_state=state if warm else None, return_state=True)
         return (k - lr * gk, state), loss
 
     @jax.jit
     def loop(k, fg, g0, ug):
-        loss0, g0k, state0 = step(k, fg, g0, ug, None)
+        loss0, g0k, state0 = kappa_mse_grad_step_3d(
+            grid, k, fg, g0, ug, iters, return_state=True)
         (k, _), losses = jax.lax.scan(
             _ft.partial(body, (fg, g0, ug)), (k - lr * g0k, state0), None,
             length=max(steps - 1, 0))
@@ -537,26 +502,24 @@ def _build_eval_3d(grid, maxiter):
 def _fit_kappa_3d(mesh, grid, f, u_data, steps, lr, kappa0, iters, warm,
                   eval_final):
     B = f.shape[0]
-    # κ-error-safe iteration policy, GRADED BY GRID SIZE — two measured
-    # control points (probe_3d_control.py, identifiable multi-forcing
+    # κ-error-safe iteration policy, GRADED BY GRID SIZE — two control
+    # points (scripts/probe_3d_control.py, identifiable multi-forcing
     # workload, Adam to deep convergence, κ-error gated):
-    # * 16³ (round 4): cold-32 ≡ cold-100 (κ err 4.03e-3 vs 4.00e-3),
-    #   cold-16 31× worse — default 32;
-    # * 32³ (round 5): cold-32 caps κ err at 1.53e-1 vs cold-100's
-    #   8.4e-3 (18×); cold-16 diverges; warm-100 and MG V-cycle steps
-    #   don't rescue it — default 100.
+    # * 16³: cold-32 ≡ cold-100 (κ err 4.03e-3 vs 4.00e-3), cold-16 31×
+    #   worse — default 32;
+    # * 32³: cold-32 caps κ err at 1.53e-1 vs cold-100's 8.4e-3 (18×);
+    #   cold-16 diverges; warm-100 and MG V-cycle steps don't rescue
+    #   it — default 100.
     # Iteration requirements grow with the grid (CG's O(n) growth); pass
     # iters=16/32 explicitly for loss-gated shallow runs only.
     if iters is None:
         iters = 32 if max(grid.nx, grid.ny, grid.nz) <= 16 else 100
-    warm = False if warm is None else warm        # measured: warm loses 3D
+    warm = False if warm is None else warm        # warm loses in 3D
     if lr is None:
         # The 3D loss is a mean over the batch AND nodes, so the κ
         # gradient magnitude scales as 1/B; the tuned point was lr=100 at
-        # B=256 (probe_3d_warm/probe_3d_control).  Folding the measured
-        # B-dependence into the default keeps the EFFECTIVE step
-        # B-invariant — a B=8 user no longer gets ~32× the intended step
-        # (VERDICT-r4 item 7; regression: tests/test_inverse.py).
+        # B=256.  Folding the B-dependence into the default keeps the
+        # EFFECTIVE step B-invariant (regression: tests/test_inverse.py).
         lr = 100.0 * (B / 256.0)
     fg = f.reshape((B,) + grid.node_shape)
     ug = u_data.reshape((B,) + grid.node_shape)
@@ -565,16 +528,10 @@ def _fit_kappa_3d(mesh, grid, f, u_data, steps, lr, kappa0, iters, warm,
         else jnp.broadcast_to(jnp.asarray(kappa0, mesh.dtype),
                               (B, mesh.n_elements))
 
-    from .ops.stencil3d import choose_3d_block_b, choose_3d_grad_step
-    path = choose_3d_grad_step(grid, B, iters=iters)
-    bb = choose_3d_block_b(grid, B, iters=iters) if path == "pallas" \
-        else 1
-    loop = _build_loop_3d(grid, iters, warm, float(lr), steps, path, bb)
+    loop = _build_loop_3d(grid, iters, warm, float(lr), steps)
     kappa, losses = loop(k0, fg, g0, ug)
-    name = "stencil3d_pallas" if path == "pallas" \
-        else "stencil3d_batchminor"
-    info = {"path": name, "iters": iters, "warm": warm,
-            "loss_history": losses, "eval_loss": None}
+    info = {"path": fit_route(3, jax.default_backend()), "iters": iters,
+            "warm": warm, "loss_history": losses, "eval_loss": None}
     if eval_final:
         ev = _build_eval_3d(grid, max(4 * iters, 256))
         info["eval_loss"] = float(ev(kappa, fg, g0, ug))

@@ -14,7 +14,7 @@ Capability parity with reference ``PhysicsLoss``
   (loss.py:85-105).  Implemented with a static-shape validity mask instead
   of dynamic free-node slicing.
 
-Plus one TPU-native extra the reference lacks: ``energy`` — the true
+Plus one extra the reference lacks: ``energy`` — the true
 variational (Ritz) energy ½uᵀKu − uᵀF, matrix-free, which is what
 "variational" ought to mean and is minimized exactly by the FEM solution.
 """
@@ -67,7 +67,7 @@ def energy_loss(mesh: FEMesh, kappa, u_pred: jax.Array,
                 f: jax.Array) -> jax.Array:
     """Ritz energy ½uᵀKu − uᵀF (matrix-free) — minimized by the FEM solution.
 
-    TPU-native extra (not in the reference): trains a surrogate without ever
+    Extra (not in the reference): trains a surrogate without ever
     solving the system, using only stiffness applies.
     """
     Ku = stiffness_apply(mesh, kappa, u_pred)

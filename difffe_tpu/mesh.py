@@ -1,4 +1,4 @@
-"""TPU-native finite element mesh.
+"""Finite element mesh.
 
 Design (vs. reference ``diffhe/mesh.py``, /root/reference/diffhe/mesh.py:14-143):
 the reference stores Dirichlet BCs as a Python ``Dict[int, float]`` and exposes
@@ -34,8 +34,8 @@ import numpy as np
 def default_dtype() -> jnp.dtype:
     """float64 when x64 is enabled (golden/accuracy path), else float32.
 
-    The reference is float64-CPU-only (solver.py:39); on TPU the production
-    path is f32/bf16 with an opt-in f64 golden path for the 1e-16 exactness
+    The reference is float64-CPU-only (solver.py:39); here the production
+    path is f32 with an opt-in f64 golden path for the 1e-16 exactness
     claims (see SURVEY.md §7 'Hard parts').
     """
     return jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
@@ -63,7 +63,7 @@ class FEMesh:
     #: ``rectangle``, ``ops.stencil3d.StructuredGrid3`` for ``box``) — static
     #: pytree aux data.  When present, ``solve_poisson(method="auto")`` routes
     #: to the closed-form stencil fast paths instead of generic gather-based
-    #: CG (orders of magnitude faster on TPU).  Factories set it; any
+    #: CG.  Factories set it; any
     #: operation that breaks the structured assumptions (``with_dirichlet``)
     #: drops it, falling back to the general paths.
     grid: Optional[object] = dataclasses.field(

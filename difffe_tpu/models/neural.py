@@ -9,7 +9,7 @@ hold by construction:
   (neural.py:85-91);
 * 2D mask: binary 0-on-BC-node / 1-inside indicator (neural.py:95-101).
 
-TPU-native differences: parameters are a plain pytree (functional
+Differences from the reference: parameters are a plain pytree (functional
 init/apply, composable with jit/vmap/grad); ``train_pde`` runs the entire
 epoch loop as one jitted ``jax.lax.scan`` over optax Adam steps — the
 reference interprets a Python loop with a fresh FEM solve per epoch

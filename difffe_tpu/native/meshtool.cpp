@@ -8,7 +8,7 @@
 //   * triangle quality statistics
 //
 // The reference has no native code at all (SURVEY.md §2: pure Python);
-// this is the runtime-side native layer of the TPU build.  Exposed to
+// this is the runtime-side native (host) layer.  Exposed to
 // Python via ctypes (meshtool.py) with a pure-numpy fallback.
 //
 // Build: ./build.sh  (g++ -O3 -shared -fPIC)

@@ -325,14 +325,14 @@ def assemble_lumped_mass(mesh: FEMesh) -> jax.Array:
 
 
 # --------------------------------------------------------------------------
-# Matrix-free operator (never materializes K — the 2D/TPU production path)
+# Matrix-free operator (never materializes K — the 2D production path)
 # --------------------------------------------------------------------------
 
 def element_apply(mesh: FEMesh, Ke: jax.Array, u: jax.Array) -> jax.Array:
     """Matrix-free K·u using per-element blocks ``Ke`` (ne, k, k).
 
     u: (..., n_nodes) → returns (..., n_nodes).  Gather element DOFs,
-    apply local blocks, scatter-add — the TPU-friendly alternative to
+    apply local blocks, scatter-add — the batched alternative to
     materializing the O(n²) dense K of the reference.  Works for every
     element family (k = nodes per element).
     """

@@ -145,13 +145,10 @@ def kappa_mse_step_cf(mesh, kappa_e: jax.Array, F: jax.Array,
                       u_data: jax.Array,
                       scale: Optional[float] = None
                       ) -> Tuple[jax.Array, jax.Array]:
-    """Fused loss-partials + ∂κ for per-element-κ 1-D inversion —
-    closed-form XLA edition of ``fused_kappa_mse_step_general``.
+    """Fused loss-partials + ∂κ for per-element-κ 1-D inversion.
 
-    Same contract as the Pallas kernels
-    (ops/pallas/fused_grad_thomas_kernel.py): κ_e (B, n_elements),
-    F (B, n_nodes) or shared (n_nodes,) *assembled* load, u_data
-    (B, n_nodes) or shared; returns
+    κ_e (B, n_elements), F (B, n_nodes) or shared (n_nodes,) *assembled*
+    load, u_data (B, n_nodes) or shared; returns
 
         loss_parts[b] = Σ_i (u_b − u_data_b)_i²           (B,)
         grad          = ∂/∂κ of  scale/2 · Σ_b loss_parts  (B, ne)
@@ -164,27 +161,36 @@ def kappa_mse_step_cf(mesh, kappa_e: jax.Array, F: jax.Array,
     _require_cf(mesh)
     dtype = mesh.dtype
     kappa_e = jnp.asarray(kappa_e, dtype)
-    B, ne = kappa_e.shape
-    n = mesh.n_nodes
+    B = kappa_e.shape[0]
     if scale is None:
-        scale = 2.0 / (B * n)
+        scale = 2.0 / (B * mesh.n_nodes)
+    bc = np.asarray(mesh.bc_values, np.float64)
+    hs = jnp.asarray(_element_widths(mesh), dtype)
+    return cf_step(hs, kappa_e, jnp.asarray(F, dtype),
+                   jnp.asarray(u_data, dtype), float(bc[0]), float(bc[-1]),
+                   scale)
 
-    F = jnp.asarray(F, dtype)
+
+def cf_step(hs: jax.Array, kappa_e: jax.Array, F: jax.Array,
+            u_data: jax.Array, u_l: float, u_r: float, scale: float
+            ) -> Tuple[jax.Array, jax.Array]:
+    """Array core of :func:`kappa_mse_step_cf`: element widths ``hs``
+    (ne,), boundary values ``u_l``/``u_r`` and ``scale`` given, so a
+    jitted loop can close over nothing but numbers."""
+    B, ne = kappa_e.shape
     if F.ndim == 1:
         F = F[None]
-    u_data = jnp.asarray(u_data, dtype)
     if u_data.ndim == 1:
         u_data = u_data[None]
-
-    a = jnp.broadcast_to(mesh.bc_values[0], (B,)).astype(dtype)
-    b = jnp.broadcast_to(mesh.bc_values[-1], (B,)).astype(dtype)
-    hs = jnp.asarray(_element_widths(mesh), dtype)
+    a = jnp.full((B,), u_l, kappa_e.dtype)
     s = hs[None, :] / kappa_e
 
     F_int = jnp.broadcast_to(F[:, 1:-1], (B, ne - 1))
-    u_rel, w = _cf_solve_interior(s, F_int, b - a)
+    u_rel, w = _cf_solve_interior(s, F_int, jnp.full((B,), u_r - u_l,
+                                                     kappa_e.dtype))
     u = jnp.concatenate(
-        [a[:, None], a[:, None] + u_rel, b[:, None]], axis=-1)
+        [a[:, None], a[:, None] + u_rel,
+         jnp.full((B, 1), u_r, kappa_e.dtype)], axis=-1)
     d = u - u_data
     loss_parts = jnp.sum(d * d, axis=-1)
 

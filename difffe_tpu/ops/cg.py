@@ -63,9 +63,8 @@ def _applyK_fixed(mesh: FEMesh, kappa):
     bodies, so building κ-dependent element blocks inside the CG operator
     re-runs the whole local-stiffness assembly every iteration.  For
     element families with per-element blocks, fold κ into the blocks here
-    and close over them (measured ~1.9× on the 4k-DOF unstructured grad
-    step, scripts/probe_unstructured.py); the 1D line family's banded
-    apply is already cheap."""
+    and close over them; the 1D line family's banded apply is already
+    cheap."""
     from .assembly import element_family, element_apply, local_stiffness
     if element_family(mesh) == "p1_line":
         return lambda w: stiffness_apply(mesh, kappa, w)
@@ -96,7 +95,7 @@ def solve_poisson_cg(mesh: FEMesh, kappa, F: jax.Array,
 
     ``F`` is the assembled load (ops/assembly.py:assemble_load).  With
     ``tol=0`` runs exactly ``maxiter`` iterations (default: n_nodes) — the
-    TPU-friendly fixed-trip-count mode for batched solves.
+    fixed-trip-count mode for batched solves.
     """
     return _cg_impl(mesh, kappa, F, tol, maxiter)
 

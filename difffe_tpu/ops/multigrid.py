@@ -192,9 +192,7 @@ def solve_poisson_structured_mg(grid: StructuredGrid, kappa_lu, f: jax.Array,
     measured >10-min XLA compile at 128×128 / 6 levels under vmap.  The
     V-cycle default compiles in seconds at every size tried (trades ~1.5×
     more iterations); opt into gamma=2 only for small hierarchies where
-    per-iteration convergence matters more than compile latency.
-    Measured CPU-f64 crossover vs fixed-trip Jacobi-PCG:
-    docs/PERFORMANCE.md 'Multigrid crossover' table."""
+    per-iteration convergence matters more than compile latency."""
     return _mg_impl(grid, kappa_lu, f, g, tol, maxiter, max_levels, gamma)
 
 

@@ -2,8 +2,7 @@
 
 Fixed-trip Jacobi-PCG iteration counts grow like O(n) with the grid side,
 and 3D is where that binds: N = n³ makes every iteration expensive AND the
-ladder needs more of them (measured collapse: 48³ at 885 grad-solves/s,
-64³ at 44-256/s — docs/PERFORMANCE.md).  A geometric V-cycle makes the
+ladder needs more of them.  A geometric V-cycle makes the
 iteration count **mesh-independent** (~10-20 to 1e-10), the direct 3D
 analogue of ops/multigrid.py:
 
@@ -20,12 +19,11 @@ analogue of ops/multigrid.py:
                  approximate Galerkin is fine for preconditioning);
 * coarsest     — extra smoothing sweeps.
 
-TPU layout: every transfer operates on spatial axes (0, 1, 2), so the SAME
+Layout: every transfer operates on spatial axes (0, 1, 2), so the SAME
 code runs the unbatched (nz+1, ny+1, nx+1) node grid and the batch-minor
-(nz+1, ny+1, nx+1, B) layout of ops/stencil3d — the scenario batch rides
-the tiled lane axis untouched at EVERY level, so coarse grids keep full
-lane utilization (a batch-leading layout would decay to 1-lane occupancy
-as the spatial tile shrinks).
+(nz+1, ny+1, nx+1, B) layout of ops/stencil3d — the scenario batch stays
+the trailing axis untouched at EVERY level, so coarse grids still move
+whole contiguous rows of scenarios as the spatial grid shrinks.
 
 Replaces torch.linalg.solve at 3D scale — the reference raises for dim>2
 (/root/reference/diffhe/solver.py:62-67,174).
@@ -96,7 +94,7 @@ def prolong_trilinear(c: jax.Array) -> jax.Array:
 def coarsen_kappa_3d(k6: jax.Array) -> jax.Array:
     """Per-tet κ (nz, ny, nx, 6, ...) → coarse (nz/2, ny/2, nx/2, 6, ...):
     tets averaged to a per-cube scalar, 2×2×2 cube-averaged, broadcast
-    back over the 6 coarse tets.  Trailing axes (batch lanes) pass
+    back over the 6 coarse tets.  Trailing (batch) axes pass
     through."""
     k = k6.mean(axis=3)                                     # (nz, ny, nx, …)
     nz, ny, nx = k.shape[:3]
@@ -253,7 +251,7 @@ def mg3_diagnostics(grid: StructuredGrid3, kappa, f, g,
 
 
 # --------------------------------------------------------------------------
-# Batch-minor MG: the scenario batch rides the lane axis at every level
+# Batch-minor MG: the scenario batch stays the trailing axis at every level
 # --------------------------------------------------------------------------
 
 def build_hierarchy_bm(grid: StructuredGrid3, k6bm: jax.Array,
@@ -296,7 +294,7 @@ def _smooth3_bm(C, m, wdinv, x, b, sweeps: int):
 def v_cycle_bm(levels, b: jax.Array, level: int = 0,
                pre: int = 2, post: int = 2, coarse_sweeps: int = 12):
     """Batch-minor V-cycle: state (nz'+1, ny'+1, nx'+1, B) — transfers
-    act on axes (0, 1, 2), B stays on lanes at every level."""
+    act on axes (0, 1, 2), B stays trailing at every level."""
     C, m, wdinv = levels[level]
     if level == len(levels) - 1:
         return _smooth3_bm(C, m, wdinv, jnp.zeros_like(b), b,
@@ -312,7 +310,7 @@ def v_cycle_bm(levels, b: jax.Array, level: int = 0,
 
 def pcg_mg_bm(levels, b, x0, tol, maxiter,
               pre: int = 2, post: int = 2, coarse_sweeps: int = 12):
-    """Batch-minor MG-PCG: per-scenario α/β (lane-axis dot), V-cycle
+    """Batch-minor MG-PCG: per-scenario α/β (trailing-axis dot), V-cycle
     preconditioner.  Returns x."""
     from .pcg import pcg
     from .stencil3d import _bm_dot

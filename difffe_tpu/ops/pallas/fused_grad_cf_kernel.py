@@ -1,43 +1,39 @@
-"""Pallas TPU kernel: closed-form per-element-κ 1D grad step.
+"""Pallas-Triton kernel: k closed-form SGD steps of 1D per-element-κ
+inversion per launch.
 
 The chain factorization (ops/cf1d.py) collapses the per-element-κ
-tridiagonal solve to two prefix sums and a rank-1 correction:
+tridiagonal solve to two prefix sums and a rank-1 correction.  Indexed
+by element e (element e joins nodes e and e+1):
 
-    s = h_e/κ_e;  S = cumsum(s);  T = cumsum(s·P)        (P from F)
-    w₁ = (u_R − u_L + T_tot)/S_tot;   u = u_L + shift(w₁S − T)
-    adjoint: same closed form with RHS scale·(u − u_data)
-    ∂κ_e = −(h_e/κ_e²)·w_e·w_e^λ                          (elementwise)
+    s = h_e/κ_e;  S = cumsum(s);  T = cumsum(s·P)         (P from F)
+    w₁ = (u_R − u_L + T_tot)/S_tot;   u_{e+1} = u_L + w₁S_e − T_e
+    adjoint: r_e = scale·(u_{e+1} − u_data_{e+1}) on interior nodes,
+             Pλ = exclusive cumsum(r),  w₁λ = Σ s·Pλ / S_tot
+    ∂κ_e = −(h_e/κ_e²)·(w₁ − P_e)·(w₁λ − Pλ_e)              (elementwise)
 
-where the PCR kernel (fused_grad_kernel.py) spends ~92 plane ops on the
-two solves, this body is 4 prefix sums + ~22 elementwise plane ops —
-and a prefix sum over rows is either 5 masked roll-adds (VPU, exact
-f32) or a matmul with a constant lower-triangular ones matrix
-(`cumsum_via="mxu"`): the ones matrix is exact in bf16, so a hi/lo
-split of the summand recovers f32-class accuracy from two
-DEFAULT-precision MXU passes (the hidden-cost matmul regime measured in
-probe_mxu_binding.py) — no residual refinement pass needed.
+Every quantity sits at the element index, so the node shift of the
+solution becomes the exclusive prefix sum (inclusive minus summand) and
+the kernel needs only forward ``jnp.cumsum`` along the element axis.
 
-Layout (same as fused_grad_kernel.py): DOF/element rows on sublanes,
-scenarios on lanes.  With shared F and shared u_data (the flagship
-inversion workload) the only streamed operand is κ itself: HBM traffic
-is one (N, B) read + one (N, B) write per step.
+Layout: κ and the shifted observations are (B, N) row-major planes,
+one scenario per row, elements padded to a power of two N.  A block of
+rows holds every scenario's whole state, so ``n_inner`` SGD steps run
+with κ in registers and a launch moves κ in, u_data in and κ out once —
+the XLA form (one ``kappa_mse_step_cf`` per ``lax.scan`` iteration)
+moves the same bytes on every step.
 
-Padding contract: element rows ≥ n_elements carry h_e = 0 → s = 0, so
-prefix totals are unaffected and their gradient is exactly 0; padded
-lanes carry κ = 1 and are sliced off by the caller.
+Padding contract: element columns ≥ n_elements carry h_e = 0 → s = 0,
+so prefix totals are unaffected and their gradient is exactly 0; they
+and padded rows carry κ = 1 and are sliced off by ``cf_unpack``.
 
-Scope: Dirichlet at exactly the two chain ends with shared (unbatched)
-values, shared assembled load F.  Batched F / batched BC values fall
-back to the XLA closed form (ops/cf1d.py), arbitrary Dirichlet masks to
-the PCR/Thomas kernels.  Replaces the reference's dense-LU + autograd
-tape per-element-κ path (/root/reference/diffhe/solver.py:29,174).
-
-Gradient parity vs the unfused XLA tridiag path is regression-tested
-(tests/test_fused_cf.py); CPU runs use interpret mode.
+Scope: Dirichlet at exactly the two chain ends with shared values, and
+a shared assembled load F.  Batched F falls back to the XLA closed form
+(ops/cf1d.py), arbitrary Dirichlet masks to the tridiagonal path.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -45,221 +41,87 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-from .tridiag_kernel import (
-    _is_cpu,
-    _round_up,
-    _shift_kernel_up_rows,
-)
-
-# Column indices in the packed (N, 128) constants block.
-_COL_HS = 0      # element width h_e on element rows, 0 on pads
-_COL_PF = 1      # P_e = Σ_{i<e} F_i from the shared load (element rows)
-_COL_UD = 2      # shared u_data on node rows (shared-ud mode)
-_COL_NM = 3      # 1 on node rows 0..n−1, 0 on pads
-_COL_IM = 4      # 1 on interior node rows 1..n−2, 0 elsewhere
-_COL_HK = 5      # h_e again (kept separate so bf16 ud experiments
-#                  can't disturb the gradient constants)
+#: most elements one block holds (rows × padded element columns)
+_BLOCK_ELEMS = 2048
+#: rows per block are at most B/512, so any batch of ≥ 512 scenarios
+#: spreads over ≥ 512 blocks (the card has 132 SMs)
+_MIN_BLOCKS = 512
 
 
-def _cumsum_rows_vpu(x):
-    """Inclusive prefix sum over sublane rows: 5 masked roll-adds."""
-    n = x.shape[0]
-    s = 1
-    while s < n:
-        x = x + _shift_kernel_up_rows(x, s, jnp.zeros((), x.dtype))
-        s *= 2
-    return x
+def _next_pow2(x: int) -> int:
+    return 1 << max(int(x) - 1, 0).bit_length()
 
 
-def _cumsum_rows_mxu(lm, x):
-    """Prefix sum as L @ x with hi/lo-split bf16 operands.
+def _launch_config(N: int, B: int):
+    """(rows per block, warps) for B scenarios of N padded elements.
 
-    L is 0/1 (exact in bf16); splitting x = hi + lo recovers ~f32
-    accuracy from two DEFAULT-precision MXU passes (the split residual
-    is itself bf16-rounded, leaving ~1e-5-class relative error — inside
-    the 1e-4 parity gate, vs 4e-3 for a single rounded pass).
-    """
-    xh = x.astype(jnp.bfloat16)
-    xl = (x - xh.astype(x.dtype)).astype(jnp.bfloat16)
-    yh = jnp.dot(lm, xh, preferred_element_type=x.dtype)
-    yl = jnp.dot(lm, xl, preferred_element_type=x.dtype)
-    return yh + yl
+    Tuned on an H100 (docs/PERFORMANCE.md): at 30 elements × 2M scenarios
+    every block size from 1024 to 4096 elements runs within 3%; at
+    128 elements × 1024 scenarios 2-row blocks with 2 warps beat 32-row
+    blocks with 8 warps by 1.8×."""
+    rows = 1 << max(B // _MIN_BLOCKS, 1).bit_length() - 1
+    rows = max(1, min(_BLOCK_ELEMS // N, rows))
+    return rows, max(1, min(8, rows * N // 128))
 
 
-def _cf_step_kernel(ke_ref, cols_ref, lm_ref, loss_ref, grad_ref, *,
-                    scale: float, u_l: float, u_r: float, via: str):
-    cols = cols_ref[:]
-    hs = cols[:, _COL_HS:_COL_HS + 1]
-    pf = cols[:, _COL_PF:_COL_PF + 1]
-    ud = cols[:, _COL_UD:_COL_UD + 1]
-    nm = cols[:, _COL_NM:_COL_NM + 1]
-    im = cols[:, _COL_IM:_COL_IM + 1]
-    hk = cols[:, _COL_HK:_COL_HK + 1]
+def _chain_kernel(ke_ref, ud_ref, hs_ref, pf_ref, dm_ref, rm_ref,
+                  loss_ref, ke_out_ref, *, n_inner: int, lr: float,
+                  scale: float, u_l: float, du: float):
+    hs = hs_ref[...]          # (1, N) element widths, 0 on pads
+    pf = pf_ref[...]          # (1, N) P_e = Σ_{1≤j≤e} F_j
+    dm = dm_ref[...]          # (1, N) 1 where node e+1 exists
+    rm = rm_ref[...]          # (1, N) 1 where node e+1 is interior
+    ud = ud_ref[...]          # (rows, N) u_data at node e+1
 
-    if via == "mxu":
-        lm = lm_ref[:]
-        cumsum = functools.partial(_cumsum_rows_mxu, lm)
-    else:
-        cumsum = _cumsum_rows_vpu
+    def step(_, carry):
+        ke, _ = carry
+        inv = 1.0 / ke
+        s = hs * inv
+        sp = s * pf
+        s_tot = jnp.sum(s, axis=1, keepdims=True)
+        w1 = (du + jnp.sum(sp, axis=1, keepdims=True)) / s_tot
+        u = u_l + w1 * jnp.cumsum(s, axis=1) - jnp.cumsum(sp, axis=1)
+        d = (u - ud) * dm
+        r = scale * d * rm
+        plam = jnp.cumsum(r, axis=1) - r
+        wl1 = jnp.sum(s * plam, axis=1, keepdims=True) / s_tot
+        g = -(hs * inv * inv) * (w1 - pf) * (wl1 - plam)
+        return ke - lr * g, jnp.sum(d * d, axis=1)
 
-    ke = ke_ref[:]                                   # (N, L)
-    s = hs / ke                                      # pads: 0/κ = 0
-    sp = s * pf
-    S = cumsum(s)
-    T = cumsum(sp)
-    s_tot = jnp.sum(s, axis=0, keepdims=True)        # (1, L)
-    t_tot = jnp.sum(sp, axis=0, keepdims=True)
-    w1 = ((u_r - u_l) + t_tot) / s_tot
-
-    zero = jnp.zeros((), ke.dtype)
-    u = u_l + _shift_kernel_up_rows(w1 * S - T, 1, zero)
-    d = (u - ud) * nm
-    loss_ref[:] = jnp.sum(d * d, axis=0, keepdims=True)
-
-    r = scale * d * im
-    pl_ = cumsum(r)                                  # Pλ on element rows
-    spl = s * pl_
-    tl_tot = jnp.sum(spl, axis=0, keepdims=True)
-    wl1 = tl_tot / s_tot
-
-    w = w1 - pf
-    wl = wl1 - pl_
-    grad_ref[:] = -(hk / (ke * ke)) * w * wl
-
-
-def _cf_step_kernel_stream_ud(ke_ref, ud_ref, cols_ref, lm_ref,
-                              loss_ref, grad_ref, *, scale: float,
-                              u_l: float, u_r: float, via: str):
-    """Per-scenario u_data variant: ud streamed as an (N, L) plane."""
-    cols = cols_ref[:]
-    hs = cols[:, _COL_HS:_COL_HS + 1]
-    pf = cols[:, _COL_PF:_COL_PF + 1]
-    nm = cols[:, _COL_NM:_COL_NM + 1]
-    im = cols[:, _COL_IM:_COL_IM + 1]
-    hk = cols[:, _COL_HK:_COL_HK + 1]
-
-    if via == "mxu":
-        lm = lm_ref[:]
-        cumsum = functools.partial(_cumsum_rows_mxu, lm)
-    else:
-        cumsum = _cumsum_rows_vpu
-
-    ke = ke_ref[:]
-    s = hs / ke
-    sp = s * pf
-    S = cumsum(s)
-    T = cumsum(sp)
-    s_tot = jnp.sum(s, axis=0, keepdims=True)
-    t_tot = jnp.sum(sp, axis=0, keepdims=True)
-    w1 = ((u_r - u_l) + t_tot) / s_tot
-
-    zero = jnp.zeros((), ke.dtype)
-    u = u_l + _shift_kernel_up_rows(w1 * S - T, 1, zero)
-    d = (u - ud_ref[:].astype(ke.dtype)) * nm
-    loss_ref[:] = jnp.sum(d * d, axis=0, keepdims=True)
-
-    r = scale * d * im
-    pl_ = cumsum(r)
-    spl = s * pl_
-    tl_tot = jnp.sum(spl, axis=0, keepdims=True)
-    wl1 = tl_tot / s_tot
-
-    w = w1 - pf
-    wl = wl1 - pl_
-    grad_ref[:] = -(hk / (ke * ke)) * w * wl
+    ke = ke_ref[...]
+    ke, loss = jax.lax.fori_loop(
+        0, n_inner, step, (ke, jnp.zeros(ke.shape[:1], ke.dtype)))
+    loss_ref[...] = loss
+    ke_out_ref[...] = ke
 
 
 @functools.partial(jax.jit, static_argnames=(
-    "scale", "u_l", "u_r", "via", "block_lanes"))
-def _cf_pallas(keT, cols, lm, scale: float, u_l: float, u_r: float,
-               via: str, block_lanes: int):
-    """keT: (N, B) packed κ; cols: (N, 128); lm: (N, N) ones-triangular.
-    Returns (loss_parts (1, B), gradT (N, B))."""
-    N, B = keT.shape
-    kernel = functools.partial(_cf_step_kernel, scale=scale, u_l=u_l,
-                               u_r=u_r, via=via)
-    row = pl.BlockSpec((1, block_lanes), lambda i: (0, i),
-                       memory_space=pltpu.VMEM)
-    plane = pl.BlockSpec((N, block_lanes), lambda i: (0, i),
-                         memory_space=pltpu.VMEM)
-    shared = pl.BlockSpec((N, 128), lambda i: (0, 0),
-                          memory_space=pltpu.VMEM)
-    tri = pl.BlockSpec((N, N), lambda i: (0, 0),
-                       memory_space=pltpu.VMEM)
+    "n_inner", "lr", "scale", "u_l", "du", "interpret", "rows",
+    "num_warps"))
+def _chain_call(keP, udP, consts, *, n_inner: int, lr: float, scale: float,
+                u_l: float, du: float, interpret: bool, rows: int,
+                num_warps: int):
+    Bp, N = keP.shape
+    kernel = functools.partial(_chain_kernel, n_inner=n_inner, lr=lr,
+                               scale=scale, u_l=u_l, du=du)
+    plane = pl.BlockSpec((rows, N), lambda i: (i, 0))
+    # consts rows: element widths, P_e, node mask, interior-node mask
+    row = [pl.BlockSpec((1, N), lambda i, k=k: (k, 0)) for k in range(4)]
     return pl.pallas_call(
         kernel,
-        out_shape=(jax.ShapeDtypeStruct((1, B), keT.dtype),
-                   jax.ShapeDtypeStruct((N, B), keT.dtype)),
-        grid=(B // block_lanes,),
-        in_specs=[plane, shared, tri],
-        out_specs=(row, plane),
-        interpret=_is_cpu(),
-        cost_estimate=pl.CostEstimate(
-            flops=B * N * 40,
-            bytes_accessed=2 * B * N * keT.dtype.itemsize,
-            transcendentals=0,
-        ),
-    )(keT, cols, lm)
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "scale", "u_l", "u_r", "via", "block_lanes"))
-def _cf_pallas_stream_ud(keT, udT, cols, lm, scale: float, u_l: float,
-                         u_r: float, via: str, block_lanes: int):
-    N, B = keT.shape
-    kernel = functools.partial(_cf_step_kernel_stream_ud, scale=scale,
-                               u_l=u_l, u_r=u_r, via=via)
-    row = pl.BlockSpec((1, block_lanes), lambda i: (0, i),
-                       memory_space=pltpu.VMEM)
-    plane = pl.BlockSpec((N, block_lanes), lambda i: (0, i),
-                         memory_space=pltpu.VMEM)
-    shared = pl.BlockSpec((N, 128), lambda i: (0, 0),
-                          memory_space=pltpu.VMEM)
-    tri = pl.BlockSpec((N, N), lambda i: (0, 0),
-                       memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        kernel,
-        out_shape=(jax.ShapeDtypeStruct((1, B), keT.dtype),
-                   jax.ShapeDtypeStruct((N, B), keT.dtype)),
-        grid=(B // block_lanes,),
-        in_specs=[plane, plane, shared, tri],
-        out_specs=(row, plane),
-        interpret=_is_cpu(),
-        cost_estimate=pl.CostEstimate(
-            flops=B * N * 40,
-            bytes_accessed=B * N * (2 * keT.dtype.itemsize
-                                    + udT.dtype.itemsize),
-            transcendentals=0,
-        ),
-    )(keT, udT, cols, lm)
-
-
-def _cf_constants(mesh, F, dtype, N: int):
-    """Build the (N, 128) constants block + the (N, N) ones-triangular."""
-    from ..cf1d import _element_widths
-
-    n = mesh.n_nodes
-    ne = mesh.n_elements
-    hs = np.asarray(_element_widths(mesh), np.float64)
-
-    Fv = np.asarray(F, np.float64).reshape(-1)
-    # P_e = Σ_{i<e} F_i over interior rows: inclusive cumsum of the
-    # interior-masked node loads, read at element row e−1
-    f_int = Fv.copy()
-    f_int[0] = 0.0
-    f_int[-1] = 0.0
-    pf = np.cumsum(f_int)[:ne]
-
-    cols = np.zeros((N, 128), np.float64)
-    cols[:ne, _COL_HS] = hs
-    cols[:ne, _COL_PF] = pf
-    cols[:n, _COL_NM] = 1.0
-    cols[1:n - 1, _COL_IM] = 1.0
-    cols[:ne, _COL_HK] = hs
-    lm = np.tril(np.ones((N, N), np.float32))
-    return jnp.asarray(cols, dtype), jnp.asarray(lm, jnp.bfloat16)
+        out_shape=(jax.ShapeDtypeStruct((Bp,), keP.dtype),
+                   jax.ShapeDtypeStruct((Bp, N), keP.dtype)),
+        grid=(Bp // rows,),
+        in_specs=[plane, plane, *row],
+        out_specs=(pl.BlockSpec((rows,), lambda i: (i,)), plane),
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=num_warps,
+                                           num_stages=1),
+        interpret=interpret,
+        name="cf_sgd_chain",
+    )(keP, udP, consts, consts, consts, consts)
 
 
 def _check_supported(mesh, F):
@@ -269,312 +131,108 @@ def _check_supported(mesh, F):
         raise ValueError(
             "closed-form kernel needs Dirichlet at exactly the two "
             "endpoint nodes (FEMesh.line factory meshes) — use the "
-            "PCR/Thomas kernels for general Dirichlet masks")
+            "tridiagonal path for general Dirichlet masks")
     if jnp.asarray(F).ndim != 1:
         raise ValueError(
             "closed-form kernel needs a shared (unbatched) load F — "
             "use ops.cf1d.kappa_mse_step_cf for per-scenario loads")
 
 
-def fused_kappa_mse_step_general_cf(mesh, kappa_e: jax.Array,
-                                    F: jax.Array, u_data: jax.Array,
-                                    scale: float | None = None,
-                                    block_lanes: int = 512,
-                                    cumsum_via: str = "mxu",
-                                    operand_dtype=None):
-    """Fused loss-partials + ∂κ for PER-ELEMENT-κ 1D inversion via the
-    closed-form chain factorization — the general-κ headline kernel.
+_static = dict(metadata=dict(static=True))
 
-    Same contract as ``fused_kappa_mse_step_general``: κ_e
-    (B, n_elements); F shared assembled load (n,); u_data (B, n) or
-    shared (n,).  Returns (loss_parts (B,), grad (B, n_elements)) for
 
-        loss_parts[b] = Σ_i (u_b − u_data_b)_i²
-        grad          = ∂/∂κ of  scale/2 · Σ_b loss_parts
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
+class CFOperands:
+    """Everything but κ that the chain kernel reads: the shifted
+    observation plane, the element constants, and (static) the sizes,
+    boundary values and launch shape.  A pytree, so it passes through
+    ``jax.jit``."""
 
-    ``scale`` defaults to 2/(B·n).  ``cumsum_via``: "mxu" (prefix sums
-    as hi/lo-split bf16 matmuls with the constant triangular-ones
-    matrix — DEFAULT-precision MXU passes, hidden-cost regime) or "vpu"
-    (5 masked roll-adds, exact f32).  ``operand_dtype=jnp.bfloat16``
-    stores a streamed per-scenario u_data plane in bf16 (no effect when
-    u_data is shared — then κ is the only streamed operand).  Exact
-    solve — no iteration count, no refinement ladder.  Not
-    differentiable — it IS the gradient step.
-    """
-    _check_supported(mesh, F)
-    dtype = mesh.dtype
-    kappa_e = jnp.asarray(kappa_e, dtype)
-    B, ne = kappa_e.shape
-    n = mesh.n_nodes
-    if scale is None:
-        scale = 2.0 / (B * n)
-    u_l = float(np.asarray(mesh.bc_values)[0])
-    u_r = float(np.asarray(mesh.bc_values)[-1])
+    udP: jax.Array            # (Bp, N) u_data at node e+1
+    consts: jax.Array         # (4, N) h_e, P_e, node mask, interior mask
+    ud0: jax.Array            # (B,) u_data at node 0
+    B: int = dataclasses.field(**_static)
+    ne: int = dataclasses.field(**_static)
+    n: int = dataclasses.field(**_static)
+    u_l: float = dataclasses.field(**_static)
+    u_r: float = dataclasses.field(**_static)
+    rows: int = dataclasses.field(**_static)
+    num_warps: int = dataclasses.field(**_static)
 
-    N = _round_up(max(n, 8), 8)
-    Bp = _round_up(max(B, block_lanes), block_lanes)
-    cols, lm = _cf_constants(mesh, F, dtype, N)
 
-    keT = jnp.ones((N, Bp), dtype).at[:ne, :B].set(kappa_e.T)
+@functools.lru_cache(maxsize=64)
+def _packer(B: int, Bp: int, N: int, hs: tuple):
+    """One jitted call that pads κ and u_data into (Bp, N) planes and
+    builds the constants from the assembled load."""
+    ne = len(hs)
+    fixed = np.zeros((4, N))
+    fixed[0, :ne] = hs
+    fixed[2, :ne] = 1.0
+    fixed[3, :ne - 1] = 1.0
 
-    u_data = jnp.asarray(u_data)
-    if u_data.ndim == 1:
-        cols = cols.at[:n, _COL_UD].set(u_data.astype(dtype))
-        lp, gT = _cf_pallas(keT, cols, lm, float(scale), u_l, u_r,
-                            cumsum_via, block_lanes)
-    else:
-        op_dtype = dtype if operand_dtype is None else operand_dtype
-        udT = jnp.zeros((N, Bp), op_dtype).at[:n, :B].set(
-            u_data.astype(op_dtype).T)
-        lp, gT = _cf_pallas_stream_ud(keT, udT, cols, lm, float(scale),
-                                      u_l, u_r, cumsum_via, block_lanes)
-    return lp[0, :B], gT[:ne, :B].T
+    @jax.jit
+    def pack(kappa_e, F, u_data):
+        dtype = kappa_e.dtype
+        pf = jnp.zeros((N,), dtype).at[1:ne].set(jnp.cumsum(F[1:ne]))
+        consts = jnp.asarray(fixed, dtype).at[1].set(pf)
+        keP = jnp.pad(kappa_e, ((0, Bp - B), (0, N - ne)),
+                      constant_values=1.0)
+        udP = jnp.pad(u_data[:, 1:], ((0, Bp - B), (0, N - ne)))
+        return keP, udP, consts, u_data[:, 0]
+
+    return pack
 
 
 def cf_packed_operands(mesh, kappa_e: jax.Array, F: jax.Array,
-                       u_data: jax.Array, block_lanes: int = 512,
-                       operand_dtype=None):
-    """Pack κ into the kernel's transposed (N, Bp) layout for
-    transpose-free SGD chains (``kappa_mse_step_cf_packed`` /
-    ``kappa_sgd_chain_cf``).
+                       u_data: jax.Array):
+    """Pack κ (B, n_elements) and u_data (B, n_nodes) or shared (n_nodes,)
+    into the kernel's (Bp, N) planes; F is the shared assembled load.
 
-    Returns (keT, aux) where aux carries everything static — including
-    a per-scenario u_data plane when u_data is (B, n) (streamed once
-    per launch; ``operand_dtype=jnp.bfloat16`` stores it half-width).
-    Thread keT through the optimizer loop and unpack once at the end
-    with ``cf_unpack(keT, aux)`` — the per-step XLA transposes of the
-    convenience API are the only thing this removes.
-    """
+    Returns (keP, ops): thread ``keP`` through the optimizer loop with
+    :func:`kappa_sgd_chain_cf` and unpack once at the end with
+    :func:`cf_unpack`."""
+    from ..cf1d import _element_widths
+
     _check_supported(mesh, F)
     dtype = mesh.dtype
     kappa_e = jnp.asarray(kappa_e, dtype)
     B, ne = kappa_e.shape
     n = mesh.n_nodes
-    N = _round_up(max(n, 8), 8)
-    Bp = _round_up(max(B, block_lanes), block_lanes)
-    cols, lm = _cf_constants(mesh, F, dtype, N)
-    u_data = jnp.asarray(u_data)
-    udT = None
-    if u_data.ndim == 1:
-        cols = cols.at[:n, _COL_UD].set(u_data.astype(dtype))
-    else:
-        op_dtype = dtype if operand_dtype is None else operand_dtype
-        udT = jnp.zeros((N, Bp), op_dtype).at[:n, :B].set(
-            u_data.astype(op_dtype).T)
-    keT = jnp.ones((N, Bp), dtype).at[:ne, :B].set(kappa_e.T)
-    aux = dict(cols=cols, lm=lm, udT=udT, B=B, ne=ne, n=n,
-               u_l=float(np.asarray(mesh.bc_values)[0]),
-               u_r=float(np.asarray(mesh.bc_values)[-1]),
-               block_lanes=block_lanes)
-    return keT, aux
+    N = max(16, _next_pow2(ne))
+    rows, num_warps = _launch_config(N, B)
+    Bp = -(-B // rows) * rows
+    pack = _packer(B, Bp, N, tuple(_element_widths(mesh).tolist()))
+    keP, udP, consts, ud0 = pack(
+        kappa_e, jnp.asarray(F, dtype),
+        jnp.broadcast_to(jnp.asarray(u_data, dtype), (B, n)))
+    bc = np.asarray(mesh.bc_values, np.float64)
+    return keP, CFOperands(udP=udP, consts=consts, ud0=ud0, B=B, ne=ne,
+                           n=n, u_l=float(bc[0]), u_r=float(bc[-1]),
+                           rows=rows, num_warps=num_warps)
 
 
-def kappa_mse_step_cf_packed(keT: jax.Array, aux: dict,
-                             scale: float | None = None,
-                             cumsum_via: str = "mxu"):
-    """Gradient step on packed (N, Bp) state: returns
-    (loss_parts (1, Bp) incl. padded lanes, gradT (N, Bp))."""
-    if scale is None:
-        scale = 2.0 / (aux["B"] * aux["n"])
-    if aux.get("udT") is not None:
-        return _cf_pallas_stream_ud(keT, aux["udT"], aux["cols"],
-                                    aux["lm"], float(scale), aux["u_l"],
-                                    aux["u_r"], cumsum_via,
-                                    aux["block_lanes"])
-    return _cf_pallas(keT, aux["cols"], aux["lm"], float(scale),
-                      aux["u_l"], aux["u_r"], cumsum_via,
-                      aux["block_lanes"])
+def cf_unpack(keP: jax.Array, ops: CFOperands) -> jax.Array:
+    return keP[:ops.B, :ops.ne]
 
 
-def cf_unpack(keT: jax.Array, aux: dict) -> jax.Array:
-    return keT[:aux["ne"], :aux["B"]].T
-
-
-# ---------------------------------------------------------------------------
-# Whole-SGD-chain variant: n_inner gradient steps per launch.  With
-# shared F/u_data the only per-scenario state is κ itself, so the whole
-# optimizer inner loop runs VMEM-resident — HBM traffic and program
-# dispatch amortize over n_inner steps (the same one-launch economics as
-# the 2D whole-CG kernels, applied to the optimizer loop).
-# ---------------------------------------------------------------------------
-
-
-def _cf_chain_kernel(ke_ref, cols_ref, lm_ref, loss_ref, ke_out_ref, *,
-                     scale: float, u_l: float, u_r: float, via: str,
-                     n_inner: int, lr: float):
-    cols = cols_ref[:]
-    hs = cols[:, _COL_HS:_COL_HS + 1]
-    pf = cols[:, _COL_PF:_COL_PF + 1]
-    ud = cols[:, _COL_UD:_COL_UD + 1]
-    nm = cols[:, _COL_NM:_COL_NM + 1]
-    im = cols[:, _COL_IM:_COL_IM + 1]
-    hk = cols[:, _COL_HK:_COL_HK + 1]
-
-    if via == "mxu":
-        lm = lm_ref[:]
-        cumsum = functools.partial(_cumsum_rows_mxu, lm)
-    else:
-        cumsum = _cumsum_rows_vpu
-
-    ke = ke_ref[:]
-    zero = jnp.zeros((), ke.dtype)
-    loss = None
-    for _ in range(n_inner):
-        inv = 1.0 / ke
-        s = hs * inv
-        sp = s * pf
-        S = cumsum(s)
-        T = cumsum(sp)
-        s_tot = jnp.sum(s, axis=0, keepdims=True)
-        t_tot = jnp.sum(sp, axis=0, keepdims=True)
-        w1 = ((u_r - u_l) + t_tot) / s_tot
-        u = u_l + _shift_kernel_up_rows(w1 * S - T, 1, zero)
-        d = (u - ud) * nm
-        loss = jnp.sum(d * d, axis=0, keepdims=True)
-        r = scale * d * im
-        pl_ = cumsum(r)
-        spl = s * pl_
-        tl_tot = jnp.sum(spl, axis=0, keepdims=True)
-        wl1 = tl_tot / s_tot
-        g = -(hk * inv * inv) * (w1 - pf) * (wl1 - pl_)
-        ke = ke - lr * g
-    loss_ref[:] = loss
-    ke_out_ref[:] = ke
-
-
-def _cf_chain_kernel_stream_ud(ke_ref, ud_ref, cols_ref, lm_ref,
-                               loss_ref, ke_out_ref, *, scale: float,
-                               u_l: float, u_r: float, via: str,
-                               n_inner: int, lr: float):
-    """Chain with per-scenario u_data: the (N, L) observation plane is
-    read once per launch and reused by all n_inner inner steps."""
-    cols = cols_ref[:]
-    hs = cols[:, _COL_HS:_COL_HS + 1]
-    pf = cols[:, _COL_PF:_COL_PF + 1]
-    nm = cols[:, _COL_NM:_COL_NM + 1]
-    im = cols[:, _COL_IM:_COL_IM + 1]
-    hk = cols[:, _COL_HK:_COL_HK + 1]
-
-    if via == "mxu":
-        lm = lm_ref[:]
-        cumsum = functools.partial(_cumsum_rows_mxu, lm)
-    else:
-        cumsum = _cumsum_rows_vpu
-
-    ke = ke_ref[:]
-    ud = ud_ref[:].astype(ke.dtype)
-    zero = jnp.zeros((), ke.dtype)
-    loss = None
-    for _ in range(n_inner):
-        inv = 1.0 / ke
-        s = hs * inv
-        sp = s * pf
-        S = cumsum(s)
-        T = cumsum(sp)
-        s_tot = jnp.sum(s, axis=0, keepdims=True)
-        t_tot = jnp.sum(sp, axis=0, keepdims=True)
-        w1 = ((u_r - u_l) + t_tot) / s_tot
-        u = u_l + _shift_kernel_up_rows(w1 * S - T, 1, zero)
-        d = (u - ud) * nm
-        loss = jnp.sum(d * d, axis=0, keepdims=True)
-        r = scale * d * im
-        pl_ = cumsum(r)
-        spl = s * pl_
-        tl_tot = jnp.sum(spl, axis=0, keepdims=True)
-        wl1 = tl_tot / s_tot
-        g = -(hk * inv * inv) * (w1 - pf) * (wl1 - pl_)
-        ke = ke - lr * g
-    loss_ref[:] = loss
-    ke_out_ref[:] = ke
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "scale", "u_l", "u_r", "via", "n_inner", "lr", "block_lanes"))
-def _cf_chain_pallas_stream_ud(keT, udT, cols, lm, scale: float,
-                               u_l: float, u_r: float, via: str,
-                               n_inner: int, lr: float,
-                               block_lanes: int):
-    N, B = keT.shape
-    kernel = functools.partial(_cf_chain_kernel_stream_ud, scale=scale,
-                               u_l=u_l, u_r=u_r, via=via,
-                               n_inner=n_inner, lr=lr)
-    row = pl.BlockSpec((1, block_lanes), lambda i: (0, i),
-                       memory_space=pltpu.VMEM)
-    plane = pl.BlockSpec((N, block_lanes), lambda i: (0, i),
-                         memory_space=pltpu.VMEM)
-    shared = pl.BlockSpec((N, 128), lambda i: (0, 0),
-                          memory_space=pltpu.VMEM)
-    tri = pl.BlockSpec((N, N), lambda i: (0, 0),
-                       memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        kernel,
-        out_shape=(jax.ShapeDtypeStruct((1, B), keT.dtype),
-                   jax.ShapeDtypeStruct((N, B), keT.dtype)),
-        grid=(B // block_lanes,),
-        in_specs=[plane, plane, shared, tri],
-        out_specs=(row, plane),
-        interpret=_is_cpu(),
-        cost_estimate=pl.CostEstimate(
-            flops=B * N * 40 * n_inner,
-            bytes_accessed=B * N * (2 * keT.dtype.itemsize
-                                    + udT.dtype.itemsize),
-            transcendentals=0,
-        ),
-    )(keT, udT, cols, lm)
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "scale", "u_l", "u_r", "via", "n_inner", "lr", "block_lanes"))
-def _cf_chain_pallas(keT, cols, lm, scale: float, u_l: float,
-                     u_r: float, via: str, n_inner: int, lr: float,
-                     block_lanes: int):
-    N, B = keT.shape
-    kernel = functools.partial(_cf_chain_kernel, scale=scale, u_l=u_l,
-                               u_r=u_r, via=via, n_inner=n_inner, lr=lr)
-    row = pl.BlockSpec((1, block_lanes), lambda i: (0, i),
-                       memory_space=pltpu.VMEM)
-    plane = pl.BlockSpec((N, block_lanes), lambda i: (0, i),
-                         memory_space=pltpu.VMEM)
-    shared = pl.BlockSpec((N, 128), lambda i: (0, 0),
-                          memory_space=pltpu.VMEM)
-    tri = pl.BlockSpec((N, N), lambda i: (0, 0),
-                       memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        kernel,
-        out_shape=(jax.ShapeDtypeStruct((1, B), keT.dtype),
-                   jax.ShapeDtypeStruct((N, B), keT.dtype)),
-        grid=(B // block_lanes,),
-        in_specs=[plane, shared, tri],
-        out_specs=(row, plane),
-        interpret=_is_cpu(),
-        cost_estimate=pl.CostEstimate(
-            flops=B * N * 40 * n_inner,
-            bytes_accessed=2 * B * N * keT.dtype.itemsize,
-            transcendentals=0,
-        ),
-    )(keT, cols, lm)
-
-
-def kappa_sgd_chain_cf(keT: jax.Array, aux: dict, n_inner: int,
+def kappa_sgd_chain_cf(keP: jax.Array, ops: CFOperands, n_inner: int,
                        lr: float, scale: float | None = None,
-                       cumsum_via: str = "mxu"):
-    """n_inner VMEM-resident SGD steps per launch on packed κ state.
+                       interpret: bool = False):
+    """``n_inner`` SGD steps κ ← κ − lr·∂κ in one kernel launch.
 
-    Returns (loss_parts (1, Bp) from the LAST inner step, keT').  Use
-    with ``cf_packed_operands``/``cf_unpack``; equivalent (to f32
-    rounding) to n_inner calls of ``kappa_mse_step_cf_packed`` with the
-    same lr — regression-tested in tests/test_fused_cf.py.
-    """
+    Returns (loss_parts (B,) of the LAST inner step's κ, keP'), where
+    loss_parts[b] = Σ_i (u_b − u_data_b)_i² and the gradient is that of
+    scale/2 · Σ_b loss_parts (``scale`` defaults to 2/(B·n)).  Equals
+    ``n_inner`` steps of ``ops.cf1d.kappa_mse_step_cf`` to f32 rounding.
+    ``interpret=True`` runs the kernel body on the host (tests)."""
     if int(n_inner) < 1:
         raise ValueError("kappa_sgd_chain_cf needs n_inner >= 1")
     if scale is None:
-        scale = 2.0 / (aux["B"] * aux["n"])
-    if aux.get("udT") is not None:
-        return _cf_chain_pallas_stream_ud(
-            keT, aux["udT"], aux["cols"], aux["lm"], float(scale),
-            aux["u_l"], aux["u_r"], cumsum_via, int(n_inner),
-            float(lr), aux["block_lanes"])
-    return _cf_chain_pallas(keT, aux["cols"], aux["lm"], float(scale),
-                            aux["u_l"], aux["u_r"], cumsum_via,
-                            int(n_inner), float(lr),
-                            aux["block_lanes"])
+        scale = 2.0 / (ops.B * ops.n)
+    lp, keP = _chain_call(
+        keP, ops.udP, ops.consts, n_inner=int(n_inner), lr=float(lr),
+        scale=float(scale), u_l=ops.u_l, du=ops.u_r - ops.u_l,
+        interpret=bool(interpret), rows=ops.rows,
+        num_warps=ops.num_warps)
+    return lp[:ops.B] + (ops.u_l - ops.ud0) ** 2, keP

@@ -3,9 +3,7 @@
 Replaces five hand-rolled copies of the same loop (ops/cg.py, ops/stencil.py,
 ops/multigrid.py, parallel/halo.py) so the converged-safe-division fix — a
 regression-tested NaN class (tests/test_review_regressions.py) — lives in
-exactly one place.  The Pallas kernels keep their own in-VMEM loops
-(ops/pallas/*) because the loop body *is* the kernel there; this module is
-the HBM/XLA form.
+exactly one place.
 
 Parameterized over:
 
@@ -15,12 +13,12 @@ Parameterized over:
 * ``dot``   — inner product.  The default is a global ``vdot`` (couples a
   scenario batch into one block-diagonal CG, the historical behavior of the
   structured path); pass :func:`batched_dot` for independent per-scenario
-  α/β, which is what the Pallas whole-CG kernel does.
+  α/β, which the batched fixed-trip solves and grad steps use.
 
 Why CG at all, and why this shape: under ``jit`` the loop is a single
 ``lax.while_loop`` with static shapes — no data-dependent Python control
 flow — and with ``tol=0`` it degenerates to a fixed trip count, the
-TPU-friendly mode for scenario batches where per-scenario early exit would
+mode for scenario batches where per-scenario early exit would
 serialize the batch.  The reference has no iterative solver at all (dense
 LU via torch.linalg.solve, /root/reference/diffhe/solver.py:174).
 """

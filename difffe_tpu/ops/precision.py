@@ -1,11 +1,11 @@
 """Mixed-precision solve policies: bf16 inner solves + f32 iterative refinement.
 
-SURVEY §7 "Hard parts" mandates an explicit precision policy for the TPU
-production path (the reference runs everything float64 on CPU,
+SURVEY §7 "Hard parts" mandates an explicit precision policy for the
+accelerator production path (the reference runs everything float64 on CPU,
 /root/reference/diffhe/solver.py — no policy needed there).  Ours:
 
   f64  — golden path: accuracy gates, κ-recovery polish (utils/debug.py).
-  f32  — production default: every benchmark number in docs/PERFORMANCE.md.
+  f32  — production default.
   bf16 — storage/compute for bandwidth-bound inner solves, wrapped in
          f32 iterative refinement (this module).
 
@@ -14,8 +14,7 @@ residual in high precision, solve the *correction* in low precision again,
 accumulate in high precision.  Each pass multiplies the error by
 O(cond(A)·ε_lo), so with bf16 (ε≈2⁻⁸) and a well-conditioned BC-eliminated
 P1 system, 2–3 passes recover full f32 accuracy while the inner solver
-reads/writes half the bytes — the right trade on TPU, where the VPU is
-usually HBM-bound (see docs/PERFORMANCE.md roofline table).
+reads/writes half the bytes — the trade for a memory-bound inner solve.
 
 Gradients: the refined solve converges to the same u = A⁻¹b as the f32
 path, so the IFT adjoint is unchanged — we reuse the band contraction from

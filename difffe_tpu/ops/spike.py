@@ -69,29 +69,9 @@ def _thomas_multi(dl, d, du, rhs):
 
 
 def _solve_reduced(M, rhs):
-    """Batched solve of the small reduced system, TPU-f64-safe.
-
-    XLA's LuDecomposition expander supports only F32/C64 on TPU, so a
-    float64 ``jnp.linalg.solve`` fails to compile there.  The reduced
-    matrix is ≈ I + small couplings (well-conditioned), so an f32 LU with
-    two f64 iterative-refinement sweeps recovers ~f64 accuracy; native
-    f64 LU is used where supported (CPU).
-    """
-    if M.dtype != jnp.float64 or jax.default_backend() != "tpu":
-        return jnp.linalg.solve(M, rhs[..., None])[..., 0]
-    M32 = M.astype(jnp.float32)
-    lu, piv = jax.scipy.linalg.lu_factor(M32)
-
-    def solve32(r):
-        return jax.scipy.linalg.lu_solve(
-            (lu, piv), r.astype(jnp.float32)[..., None]
-        )[..., 0].astype(jnp.float64)
-
-    z = solve32(rhs)
-    for _ in range(2):     # iterative refinement in f64
-        r = rhs - jnp.einsum("bij,bj->bi", M, z)
-        z = z + solve32(r)
-    return z
+    """Batched solve of the small reduced system (≈ I + small couplings,
+    well-conditioned) by LU in the input precision."""
+    return jnp.linalg.solve(M, rhs[..., None])[..., 0]
 
 
 def _spike_impl(d, e, F, chunk):

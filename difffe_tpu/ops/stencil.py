@@ -5,8 +5,9 @@ split) the P1 stiffness matrix is a **7-point stencil** on the node grid —
 neighbors (0,±1), (±1,0), (+1,−1), (−1,+1) — with coefficients that are
 sums of adjacent-triangle local entries.  This module assembles those
 coefficient planes with shifted slice-adds (no scatter at all) and applies
-K·u as seven shifted multiply-adds: pure VPU work that XLA fuses into a
-single pass, vmaps over scenario batches, and shards over a DOF grid.
+K·u as seven shifted multiply-adds: pure elementwise work that XLA fuses
+into a single pass, vmaps over scenario batches, and shards over a DOF
+grid.
 
 This is the 2D production path (BASELINE configs 4-5): the unstructured
 gather/scatter path (ops/assembly.py:element_apply_2d) remains for general
@@ -260,10 +261,8 @@ def residual_vjp_manual(grid: StructuredGrid, kappa_lu, f, g, u, lam,
     (λᵀ∂R/∂κ, λᵀ∂R/∂f, λᵀ∂R/∂g) with shapes reduced to the primals.
     Replaces ``jax.vjp(residual, ...)``: the tape transpose materialized
     7-plane ∂C cotangents and re-ran the coefficient assembly; this is a
-    handful of fused slice expressions.  Measured on TPU v5e (64×64, B=64,
-    128-iter Pallas CG): +2.6% end-to-end on the gradient path — the two
-    CG solves dominate, so the win is mostly clarity + fewer materialized
-    intermediates.  Grads agree with the tape to 1e-7 (f32).
+    handful of fused slice expressions.  Grads agree with the tape to
+    1e-7 (f32).
 
     Derivation: λᵀR = λᵀ(m⊙g) + (pλ)ᵀF(f) − (pλ)ᵀK(w) − λᵀ(m⊙u), with
     w = m⊙g + p⊙u, so ∂f = F*(pλ) (F is symmetric), ∂g = m⊙(λ − K(pλ))
@@ -383,3 +382,60 @@ def _bwd(grid, tol, maxiter, res, gbar):
 
 
 solve_poisson_structured.defvjp(_fwd, _bwd)
+
+
+def kappa_mse_grad_step_2d(grid: StructuredGrid, kappa_lu, f: jax.Array,
+                           g: jax.Array, u_data: jax.Array, iters: int,
+                           scale: Optional[float] = None, warm_state=None,
+                           return_state: bool = False):
+    """One batched κ-inversion gradient step with optional CG warm starts.
+
+    For loss = scale/2 · Σ_{b,ij} (u_b − u_data_b)²_{ij}, with u_b the
+    fixed-trip (``iters``) PCG solve of A(κ_b) u = b(f_b, g, κ_b), returns
+
+        (loss_parts (B,), (∂κ_lower, ∂κ_upper))   [+ state]
+
+    ``scale`` defaults to 2/(B·H·W), which makes the loss ``jnp.mean``.
+    Forward and IFT-adjoint CG run per scenario (independent α/β), and
+    the κ cotangents come from the closed-form contraction
+    (:func:`stencil_kappa_grad`).  In an SGD loop κ moves O(lr) per step,
+    so passing the previous step's ``state`` (from ``return_state=True``)
+    seeds both solves with the previous (u, λ) and buys the converged
+    loss at a fraction of the iterations (tests/test_stencil.py).
+    Batched: κ planes (B, ny, nx) or shared (ny, nx); f, u_data
+    (B, ny+1, nx+1); g the node grid.  A step function (loss, grad), not
+    a differentiable primitive.
+    """
+    from .pcg import batched_dot, pcg
+
+    kl, ku = kappa_lu
+    C = stencil_coefficients(grid, kl, ku)
+    m = boundary_mask_grid(grid, f.dtype)
+    p = 1.0 - m
+    mg = m * g
+    b = mg + p * (load_grid(grid, f) - stencil_apply(C, mg))
+    b = jnp.broadcast_to(b, jnp.broadcast_shapes(b.shape, u_data.shape))
+    B = b.shape[0]
+    if scale is None:
+        scale = 2.0 / (B * b.shape[-2] * b.shape[-1])
+    diagA = m + p * C[..., 0, :, :]
+    Minv = 1.0 / jnp.where(jnp.abs(diagA) > 1e-30, diagA, 1.0)
+    if warm_state is None:
+        x0, l0 = jnp.broadcast_to(mg, b.shape), jnp.zeros_like(b)
+    else:
+        x0, l0 = warm_state
+
+    def solve(rhs, x):
+        return pcg(lambda v: _operator(C, m, v), rhs, lambda r: Minv * r,
+                   x, 0.0, iters, dot=batched_dot(2))
+
+    u = solve(b, x0)
+    diff = u - u_data
+    lam = solve(scale * diff, l0)
+    g_low, g_up = stencil_kappa_grad(grid, p * lam, mg + p * u)
+    grads = (_reduce_to(-g_low, jnp.shape(kl)),
+             _reduce_to(-g_up, jnp.shape(ku)))
+    loss_parts = jnp.sum(diff * diff, axis=(-2, -1))
+    if return_state:
+        return loss_parts, grads, (u, lam)
+    return loss_parts, grads

@@ -14,9 +14,9 @@ tests/test_stencil3d.py.
 Moreover each tet couples exactly one edge per axis, all with the same
 weight ``w_a = h_b·h_c / (6·h_a)`` — so the three coefficient volumes are
 fixed sums of zero-padded shifts of the per-cube (6,) κ array: ~12 pad/add
-ops, no scatter at all.  K·u is then 7 shifted multiply-adds — pure VPU
-work XLA fuses into one pass, vmaps over scenario batches, and shards over
-a DOF grid.  The unstructured gather/scatter and edge-ELL paths
+ops, no scatter at all.  K·u is then 7 shifted multiply-adds — pure
+elementwise work XLA fuses into one pass, vmaps over scenario batches, and
+shards over a DOF grid.  The unstructured gather/scatter and edge-ELL paths
 (ops/assembly.py, ops/unstructured.py) remain for general tetrahedral
 meshes; equality is tested.
 
@@ -348,16 +348,13 @@ def solve_poisson_structured_3d(grid: StructuredGrid3, kappa, f: jax.Array,
 # --------------------------------------------------------------------------
 # Batch-minor (structure-of-arrays) batched solve.
 #
-# TPU HBM tiles the LAST TWO logical dims as (8, 128).  With batch-leading
-# (B, nz+1, ny+1, nx+1) state the tiled dims are (ny+1, nx+1) — e.g. 17×17
-# stores as 24×128, a ~10.6× footprint/traffic inflation that dominates the
-# CG loop.  Keeping the scenario batch as the TRAILING (lane) axis makes the
-# tiled dims (nx+1, B): with B a multiple of 128 the inflation is just the
-# sublane pad (17→24, 1.4×).  Measured on chip: 7.9× over the vmapped
-# batch-leading form at 16³/B=256 (scripts/probe_3d_stencil.py).  The
-# public API still takes batch-leading (B, …) arrays — layout is an
-# implementation detail: inputs are moved once per solve, state stays
-# batch-minor through the whole CG while_loop.
+# The scenario batch is the TRAILING axis of every CG state array, so each
+# stencil shift moves whole contiguous rows of scenarios and the per-
+# scenario dots reduce over the leading grid axes.  The public API still
+# takes batch-leading (B, …) arrays — layout is an implementation detail:
+# inputs are moved once per solve, state stays batch-minor through the
+# whole CG while_loop.  Which layout is faster at which B is for the
+# benchmark to decide (ROADMAP).
 # --------------------------------------------------------------------------
 
 def _bm_embed(q, dz, dy, dx):
@@ -574,8 +571,7 @@ def solve_poisson_structured_3d_batched(grid: StructuredGrid3, kappa,
     kappa: (B, 6·nx·ny·nz) flat or (B, nz, ny, nx, 6); f: (B,) + node
     grid; g: node grid or (B,) + node grid.  Returns u (B,) + node grid.
     Semantically identical to vmapping :func:`solve_poisson_structured_3d`
-    (tested); ~8× faster on TPU for small grids at large B because CG
-    state keeps B on the tiled lane axis.
+    (tested).
     """
     return _solve_impl_3d_batched(grid, kappa, f, g, tol, maxiter)
 
@@ -616,11 +612,11 @@ def kappa_mse_grad_step_3d(grid: StructuredGrid3, kappa, f, g, u_data,
     """One κ-inversion gradient step: loss = mean((u(κ) − u_data)²),
     returns (loss, ∂loss/∂κ) — with optional CG **warm starts**.
 
-    The 3D analogue of the 2D warm-start lever (stencil_cg_kernel.py
-    ``warm_state``): in an SGD loop κ moves O(lr) per step, so threading
+    The 3D analogue of the 2D warm-start lever
+    (ops/stencil.kappa_mse_grad_step_2d): in an SGD loop κ moves O(lr) per step, so threading
     the previous step's (u, λ) through the scan as the next step's CG
     initial guesses buys the same converged loss at a fraction of the
-    per-step iterations (measured: scripts/probe_3d_warm.py).  Pass
+    per-step iterations.  Pass
     ``warm_state=<previous step's returned state>`` and
     ``return_state=True`` to receive the new state (an opaque
     batch-minor pair — thread it, don't consume it).
@@ -628,7 +624,7 @@ def kappa_mse_grad_step_3d(grid: StructuredGrid3, kappa, f, g, u_data,
     Gradients are computed by the same IFT adjoint as the custom_vjp
     solve (one adjoint CG on the self-adjoint operator + the closed-form
     κ contraction) — this is a step FUNCTION (loss, grad), not a
-    differentiable primitive, exactly like the fused 1D/2D kernels.
+    differentiable primitive, exactly like the 1D/2D grad steps.
     Batched: kappa (B, ne) flat or (B, nz, ny, nx, 6); f, u_data
     (B,) + node grid; g a node grid.  Batch-minor internally.
     """
@@ -659,110 +655,18 @@ def kappa_mse_grad_step_3d(grid: StructuredGrid3, kappa, f, g, u_data,
         gk = gk.reshape((gk.shape[0], grid.n_elements))
     if return_state:
         # state stays batch-minor: it is an OPAQUE carry for the next
-        # step's warm start (re-transposing every step would cost ~25%,
-        # measured) — don't consume it as node grids.
+        # step's warm start (no per-step re-transpose) — don't consume it
+        # as node grids.
         return loss, gk, (ubm, lam)
     return loss, gk
 
 
-def choose_3d_block_b(grid: StructuredGrid3, batch: int,
-                      operand_dtype=None, iters=None) -> int:
-    """Scenarios per kernel block for the fused 3D grad step.
-
-    Round-5 measurement (scripts/probe_3d_bf16.py, iters-32): at
-    large-plane sizes block_b=2 halves the grid-program count and is
-    worth +45% (48³ B=32: 637-644 vs 440 grad-solves/s) — but f32
-    bb=2 sits ON the 16 MB scoped-VMEM cliff: iters-32 compiles,
-    iters-100 (the κ-error-safe fit_kappa setting) fails with a 17.28 M
-    scoped allocation.  So bb=2 ships only with bf16 coefficient
-    storage (12.4 M est., iters-100 verified on chip); f32 production
-    stays bb=1.  block_b=4 fails the compile helper outright.  Below
-    the large-plane boundary the grid count isn't the binder."""
-    from .pallas.stencil3d_cg_kernel import (_LARGE_PLANE_LANES,
-                                             _MAX_GRID_LARGE, _round_up,
-                                             fused_fits)
-    HWp = _round_up((grid.ny + 1) * (grid.nx + 1), 128)
-    if HWp < _LARGE_PLANE_LANES or operand_dtype is None:
-        return 1
-    ci = 2
-    deep = iters is not None and iters > 32
-    for bb in (2, 1):
-        if batch % bb:
-            continue
-        chunked = batch // bb > _MAX_GRID_LARGE
-        if not fused_fits(grid.node_shape, bb, coeff_itemsize=ci,
-                          chunked=chunked, deep=deep):
-            continue
-        if chunked and batch % (_MAX_GRID_LARGE * bb):
-            continue
-        return bb
-    return 1
-
-
-def choose_3d_grad_step(grid: StructuredGrid3, batch: int,
-                        operand_dtype=None, iters=None) -> str:
-    """Pick the per-tet κ-inversion GRAD-STEP implementation from the
-    measured TPU boundaries (rounds 4-5, scripts/probe_3d_kernel.py +
-    probe_3d_bf16.py):
-
-    * 16³ B=256: XLA batch-minor 73.9k vs Pallas kernel 62.6k — small
-      grids keep the lane-packed batch advantage → ``'xla_bm'``;
-    * 32³ B=128: Pallas whole-CG kernel wins (r4 2.9× at iters-16;
-      r5 iters-32: 7.3-8.7k vs XLA ~2.1k) → ``'pallas'`` once
-      per-scenario state dominates (boundary at ~10⁴ nodes);
-    * 48³: kernel chunks at 8·block_b scenarios per launch
-      (remote-compile grid cap), block_b=2 production (+45%);
-    * 64³ now routes to the kernel too — the old 19-plane VMEM
-      estimate was wrong, the kernel compiles and runs at 345
-      grad-solves/s f32 (B≤8 per launch) vs XLA batch-minor's 174 —
-      except where chunked launches exceed the measured chunked-VMEM
-      cap (64³ f32 with B>8 fails the compile helper; bf16
-      coefficient storage fits and is the B>8 route there);
-    * pass ``iters``: deep launches (iters > 32, the κ-error-safe
-      fit_kappa settings) allocate MORE scoped VMEM — 64³ f32 and
-      48³-f32-bb2 compile at iters-32 but fail at iters-100 (16 MB
-      scoped cliff), so deep f32 at 64³ falls back to ``'xla_bm'``
-      while their bf16-coefficient forms keep the kernel (all cells
-      verified on chip, probe_3d_bf16.py + follow-up);
-    * non-divisible batches at chunked sizes → ``'xla_bm'`` (the
-      kernel raises rather than mis-chunking).
-
-    Returns 'xla_bm' (kappa_mse_grad_step_3d) or 'pallas'
-    (ops.pallas.stencil3d_cg_kernel.fused_kappa_mse_step_3d_pallas).
-    """
-    from .pallas.stencil3d_cg_kernel import (_LARGE_PLANE_LANES,
-                                             _MAX_GRID_LARGE, _round_up,
-                                             fused_fits)
-    n_nodes = (grid.nx + 1) * (grid.ny + 1) * (grid.nz + 1)
-    if n_nodes <= 10_000:
-        return "xla_bm"
-    ci = 2 if operand_dtype is not None else 4
-    deep = iters is not None and iters > 32
-    bb = choose_3d_block_b(grid, batch, operand_dtype, iters)
-    chunked = batch // bb > _MAX_GRID_LARGE
-    if not fused_fits(grid.node_shape, bb, coeff_itemsize=ci,
-                      chunked=chunked, deep=deep):
-        return "xla_bm"
-    HWp = _round_up((grid.ny + 1) * (grid.nx + 1), 128)
-    if (HWp >= _LARGE_PLANE_LANES and batch // bb > _MAX_GRID_LARGE
-            and batch % (_MAX_GRID_LARGE * bb)):
-        # large planes chunk the batch at 8·bb per launch; a
-        # non-divisible batch can't take the kernel — fall back rather
-        # than error from the default path
-        return "xla_bm"
-    return "pallas"
-
-
 def choose_3d_path(grid: StructuredGrid3, batch: int):
-    """Pick the batched 3D solve layout from measured TPU boundaries.
-
-    Batch-minor keeps the scenario batch on the tiled lane axis, so it
-    needs B ≥ 128 to fill lanes (B=32 pads 4×) — below that, vmapped
-    batch-leading wins.  Above it, batch-minor's advantage grows with the
-    grid (measured, scripts/probe_3d_stencil.py, 100-iter grad steps):
-    16³ 1.07×, 32³ 4.4×, 48³ 3.2×; at 64³/B=32 batch-leading is 2.4×
-    ahead purely because B<128.  Returns a callable
-    ``(kappaB, fB, g, tol, maxiter) -> uB`` with batch-leading arrays.
+    """Pick the batched 3D solve layout: batch-minor at B ≥ 128, the
+    per-scenario vmap below.  Both give the same iterates (tested); the
+    threshold is a layout rule for the benchmark to re-decide (ROADMAP).
+    Returns a callable ``(kappaB, fB, g, tol, maxiter) -> uB`` with
+    batch-leading arrays.
     """
     if batch >= 128:
         return partial(solve_poisson_structured_3d_batched, grid)

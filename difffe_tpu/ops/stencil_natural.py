@@ -1,5 +1,4 @@
-"""Natural (Neumann/Robin) BCs on the structured-grid fast path
-(VERDICT-r4 item 4).
+"""Natural (Neumann/Robin) BCs on the structured-grid fast path.
 
 The structured stencil solvers (ops/stencil.py) hard-code the factory
 full-boundary Dirichlet mask, so adding a flux BC used to forfeit the
@@ -15,10 +14,8 @@ correct eliminated operator whatever m is — and natural BCs only touch:
   7-plane stencil (``fold_robin_planes`` maps each COO entry to its
   OFFSETS plane — a static, host-side check).
 
-So the whole natural-BC family rides the same stencil machinery: XLA
-apply/PCG here, and the VMEM-resident whole-CG Pallas kernel via the
-``natural=`` hook in ops/pallas/stencil_cg_kernel.py — flux-BC users
-keep kernel-class throughput.
+So the whole natural-BC family rides the same stencil machinery: the
+XLA stencil apply and PCG, per scenario under ``vmap`` for batches.
 
 Generalizes the reference's Dirichlet-only BC elimination
 (/root/reference/diffhe/solver.py:153-183).
@@ -43,20 +40,6 @@ from .stencil import (
     stencil_coefficients,
     stencil_kappa_grad,
 )
-
-
-def robin_is_axis_adjacent(grid: StructuredGrid, rows, cols) -> bool:
-    """True when every COO entry sits on the center or an AXIS-adjacent
-    plane (offsets (0,0), (0,±1), (±1,0)) — the 5-point set the Pallas
-    whole-CG kernel carries.  Boundary-edge Robin terms always qualify
-    (grid boundary edges are axis-aligned); host-side, static."""
-    ny1, nx1 = grid.node_shape
-    r = np.asarray(rows)
-    c = np.asarray(cols)
-    ri, ci = np.divmod(r, nx1)
-    rj, cj = np.divmod(c, nx1)
-    offs = set(zip((rj - ri).tolist(), (cj - ci).tolist()))
-    return offs <= set(OFFSETS[:5])
 
 
 def fold_robin_planes(grid: StructuredGrid, rows, cols, vals,
@@ -203,144 +186,3 @@ def _nat_bwd(grid, tol, maxiter, res, gbar):
 
 
 solve_poisson_structured_natural.defvjp(_nat_fwd, _nat_bwd)
-
-
-# --------------------------------------------------------------------------
-# Batched natural-BC solve through the VMEM-resident whole-CG Pallas
-# kernel — flux-BC users keep kernel-class throughput (VERDICT-r4 item 4).
-# --------------------------------------------------------------------------
-
-def _prep_nat_pallas(grid, kappa_lu, f, g, m, qn, C_r, rload, block_b):
-    """Fold the generalized mask + natural terms into padded kernel
-    inputs for ops/pallas/stencil_cg_kernel._cg_pallas.  C_r (if any)
-    must be axis-adjacent (``robin_is_axis_adjacent``) — planes 5/6 of
-    the total operator stay structurally zero, which is what lets the
-    5-point kernel carry it."""
-    from .pallas.stencil_cg_kernel import _round_up
-
-    kl, ku = kappa_lu
-    C = stencil_coefficients(grid, kl, ku)            # (B,7,H,W)/(7,H,W)
-    if C.ndim == 3:
-        C = C[None]
-    if f.ndim == 2:
-        f = f[None]
-    C_tot = C
-    if C_r is not None:
-        Cr = C_r if C_r.ndim == 4 else C_r[None]
-        C_tot = C + Cr
-    B = max(C_tot.shape[0], f.shape[0])
-    H, W = grid.node_shape
-    dtype = f.dtype
-    p = 1.0 - m
-    F = load_grid(grid, f)
-    extra = 0.0
-    if qn is not None:
-        extra = extra + qn
-    if rload is not None:
-        extra = extra + rload
-    mg = m * g
-    b = jnp.broadcast_to(
-        mg + p * (F + extra - stencil_apply(C_tot, mg)), (B, H, W))
-    diagA = m + p * C_tot[:, 0] * p
-    Minv = jnp.broadcast_to(
-        1.0 / jnp.where(jnp.abs(diagA) > 1e-30, diagA, 1.0), (B, H, W))
-    x0 = jnp.broadcast_to(mg, (B, H, W))
-    # fold the general mask into the planes: D0 = m + p·C0·p,
-    # Dk = p·Ck·shift(p)
-    planes = [m + p * C_tot[:, 0] * p]
-    for k, (dr, dc) in enumerate(OFFSETS[1:5], start=1):
-        planes.append(p * C_tot[:, k] * _shift2d(p, dr, dc))
-    D = jnp.stack(planes, axis=0)                     # (5, B, H, W)
-
-    Wp = _round_up(W, 128)
-    Bp = _round_up(B, max(block_b, 1))
-
-    def pad3(x, fill):
-        out = jnp.full((Bp, H, Wp), fill, dtype)
-        return out.at[:B, :, :W].set(x)
-
-    D_p = jnp.full((5, Bp, H, Wp), 0.0, dtype).at[:, :B, :, :W].set(D)
-    D_p = D_p.at[0, :, :, W:].set(1.0)
-    D_p = D_p.at[0, B:, :, :].set(1.0)
-    return (C_tot, D_p, pad3(b, 0.0), pad3(Minv, 1.0), pad3(x0, 0.0),
-            B, W)
-
-
-def _nat_pallas_impl(grid, kappa_lu, f, g, m, qn, C_r, rload, iters,
-                     block_b):
-    from .pallas.stencil_cg_kernel import _cg_pallas
-
-    C_tot, D_p, b_p, minv_p, x0_p, B, W = _prep_nat_pallas(
-        grid, kappa_lu, f, g, m, qn, C_r, rload, block_b)
-    x = _cg_pallas(D_p, b_p, minv_p, x0_p, iters, block_b)[:B, :, :W]
-    x = x[0] if f.ndim == 2 and x.shape[0] == 1 else x
-    return x, (C_tot, D_p, minv_p, B, W)
-
-
-@partial(jax.custom_vjp, nondiff_argnums=(0, 8, 9))
-def solve_structured_pallas_natural(grid: StructuredGrid, kappa_lu,
-                                    f: jax.Array, g: jax.Array,
-                                    m: jax.Array,
-                                    qn: Optional[jax.Array] = None,
-                                    C_r: Optional[jax.Array] = None,
-                                    rload: Optional[jax.Array] = None,
-                                    iters: int = 128,
-                                    block_b: int = 8) -> jax.Array:
-    """Batched natural-BC structured solve on the whole-CG Pallas kernel.
-
-    Same contract as :func:`solve_poisson_structured_natural` but fixed
-    trip count (``iters``) and VMEM-resident — the kernel-class route
-    for batched flux-BC scenarios.  C_r must be axis-adjacent
-    (``robin_is_axis_adjacent``; boundary-edge Robin always is)."""
-    u, _ = _nat_pallas_impl(grid, kappa_lu, f, g, m, qn, C_r, rload,
-                            iters, block_b)
-    return u
-
-
-def _natp_fwd(grid, kappa_lu, f, g, m, qn, C_r, rload, iters, block_b):
-    u, saved = _nat_pallas_impl(grid, kappa_lu, f, g, m, qn, C_r, rload,
-                                iters, block_b)
-    return u, (kappa_lu, f, g, m, qn, C_r, rload, u, saved)
-
-
-def _natp_bwd(grid, iters, block_b, res, gbar):
-    from .pallas.stencil_cg_kernel import _cg_pallas
-
-    kappa_lu, f, g, m, qn, C_r, rload, u, saved = res
-    C_tot, D_p, minv_p, B, W = saved
-    kl, ku = kappa_lu
-    gb = gbar if gbar.ndim == 3 else gbar[None]
-    H = grid.node_shape[0]
-    Bp, _, Wp = minv_p.shape
-    dtype = gb.dtype
-    gb_p = jnp.zeros((Bp, H, Wp), dtype).at[:B, :, :W].set(
-        jnp.broadcast_to(gb, (B, H, W)))
-    lam = _cg_pallas(D_p, gb_p, minv_p, jnp.zeros((Bp, H, Wp), dtype),
-                     iters, block_b)[:B, :, :W]
-    if gbar.ndim == 2:
-        lam = lam[0]
-
-    p = 1.0 - m
-    pl_ = p * lam
-    w = m * g + p * u
-    g_low, g_up = stencil_kappa_grad(grid, pl_, w)
-    grad_f = load_grid(grid, pl_)
-    Capp = C_tot[0] if (C_tot.shape[0] == 1 and gbar.ndim == 2) \
-        else C_tot
-    grad_g = m * (lam - stencil_apply(Capp, pl_))
-    grad_qn = None if qn is None else _reduce_to(pl_, jnp.shape(qn))
-    grad_rload = None if rload is None else _reduce_to(pl_,
-                                                       jnp.shape(rload))
-    if C_r is None:
-        grad_Cr = None
-    else:
-        planes = [-pl_ * _shift2d(w, dr, dc) for dr, dc in OFFSETS]
-        grad_Cr = _reduce_to(jnp.stack(planes, axis=-3), jnp.shape(C_r))
-    return ((_reduce_to(-g_low, jnp.shape(kl)),
-             _reduce_to(-g_up, jnp.shape(ku))),
-            _reduce_to(grad_f, jnp.shape(f)),
-            _reduce_to(grad_g, jnp.shape(g)),
-            jnp.zeros_like(m), grad_qn, grad_Cr, grad_rload)
-
-
-solve_structured_pallas_natural.defvjp(_natp_fwd, _natp_bwd)

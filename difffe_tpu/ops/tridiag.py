@@ -3,8 +3,8 @@
 The 1D P1 stiffness matrix on a chain mesh is symmetric tridiagonal, so the
 reference's dense LU (`torch.linalg.solve`, /root/reference/diffhe/solver.py:174,
 O(n³)) is replaced by PCR: log₂n fully-vectorized elementwise sweeps —
-depth O(log n) with every sweep a VPU-friendly map over (batch, n).  A
-sequential Thomas scan would serialize on TPU; PCR keeps the whole scenario
+depth O(log n) with every sweep an elementwise map over (batch, n).  A
+sequential Thomas scan would serialize over n; PCR keeps the whole scenario
 batch × DOF plane busy.
 
 Gradients: ``tridiag_solve`` carries a ``jax.custom_vjp``.  The matrix is
@@ -112,8 +112,8 @@ def solve_poisson_tridiag(mesh: FEMesh, d: jax.Array, e: jax.Array,
       d̃ = p⊙d + m,  ẽ_i = p_i p_{i+1} e_i,  F̃ = m⊙g + p(F − T(m⊙g)).
     Supports leading batch axes on d, e, F.
 
-    backend: 'xla' (fused elementwise sweeps) or 'pallas' (single VMEM-
-    resident kernel for the whole reduction, ops/pallas/tridiag_kernel.py).
+    backend: 'xla' (fused PCR sweeps) or 'spike' (chunked Thomas +
+    reduced system, ops/spike.py).
     ``bc_values`` optionally overrides the mesh's Dirichlet values and may
     carry leading batch axes (per-scenario BC perturbations — a north-star
     batch dimension, BASELINE.json).
@@ -127,18 +127,14 @@ def solve_poisson_tridiag(mesh: FEMesh, d: jax.Array, e: jax.Array,
     mg = jnp.broadcast_to(m * g, F.shape)
     F_mod = jnp.broadcast_to(m * g + p * (F - tridiag_matvec(d, e, mg)),
                              F.shape)
-    if backend != "xla":
-        # non-XLA backends take explicitly batched bands
+    if backend == "spike":
+        # the spike solver takes explicitly batched bands
         bshape = F_mod.shape[:-1]
         d_mod = jnp.broadcast_to(d_mod, bshape + d_mod.shape[-1:])
         e_mod = jnp.broadcast_to(e_mod, bshape + e_mod.shape[-1:])
-    if backend == "pallas":
-        from .pallas.tridiag_kernel import tridiag_solve_pallas
-        return tridiag_solve_pallas(d_mod, e_mod, F_mod)
-    if backend == "spike":
         from .spike import tridiag_solve_spike
         return tridiag_solve_spike(d_mod, e_mod, F_mod, chunk)
     if backend != "xla":
         raise ValueError(f"unknown tridiagonal backend {backend!r} "
-                         "(expected 'xla', 'pallas', or 'spike')")
+                         "(expected 'xla' or 'spike')")
     return tridiag_solve(d_mod, e_mod, F_mod)

@@ -1,5 +1,5 @@
 """Gather-only (edge-ELL) matrix-free operator for arbitrary P1
-triangulations — the TPU-native unstructured path.
+triangulations — the batched unstructured path.
 
 The general unstructured apply (ops/assembly.py:element_apply) is
 element-centric: gather element DOFs, apply local blocks, SCATTER-ADD
@@ -28,13 +28,8 @@ The per-element-κ gradient needs one scatter per GRAD STEP (the
 transpose of the κ gathers inside the residual-map VJP), not per
 iteration — that is the whole point.
 
-Why not a whole-CG Pallas kernel like the structured path: Mosaic on
-this toolchain cannot lower arbitrary VMEM gathers at all
-(jnp.take → lowering error; take_along_axis on either axis → compiler
-SIGABRT; scripts/probe_mosaic_gather.py), so the unstructured matvec
-stays in XLA and the VMEM-resident whole-CG kernels remain the
-structured-grid specialization.  Measured rates and the decision record:
-docs/PERFORMANCE.md 'Unstructured meshes'.
+The matvec is plain XLA (a static-index gather plus a contraction); the
+decision record is docs/PERFORMANCE.md 'Unstructured meshes'.
 
 Reference counterpart: the arbitrary-connectivity data model of
 /root/reference/diffhe/mesh.py:30-39 with the dense assembly of
@@ -213,16 +208,13 @@ solve_poisson_cg_ell.defvjp(_ell_fwd, _ell_bwd)
 # ---------------------------------------------------------------------------
 # Batch-minor (structure-of-arrays) batched ELL solve
 #
-# TPU HBM tiles the LAST TWO logical dims as (8, 128).  The batch-leading
-# vmapped form's per-iteration gather produces (B, n, Dn) with Dn ≈ 8 on
-# the LANE axis — a 128/Dn ≈ 16× tile-padding inflation on the largest
-# intermediate of the whole loop (and the prefolded W table suffers it
-# too).  Keeping the scenario batch as the trailing axis makes the gather
-# result (n, Dn, B) and the state (n, B): with B a multiple of 128 both
-# tile exactly.  Same trick as ops/stencil3d.py's batch-minor CG, applied
-# to the gather tables.  The row gather u[nbr] stays a static index
-# gather of full 128-lane rows.  Measured rates: docs/PERFORMANCE.md
-# 'Unstructured meshes'.
+# The batch-leading vmapped form's per-iteration gather produces
+# (B, n, Dn) with the short Dn ≈ 8 axis innermost.  Keeping the scenario
+# batch as the trailing axis makes the gather result (n, Dn, B) and the
+# state (n, B), so the row gather u[nbr] moves whole contiguous rows of
+# scenarios.  Same layout as ops/stencil3d.py's batch-minor CG, applied
+# to the gather tables.  fit_kappa takes it at B ≥ 128, a threshold for
+# the benchmark to re-decide (ROADMAP).
 # ---------------------------------------------------------------------------
 
 

@@ -6,7 +6,7 @@ distinct κ-regimes, each regime gets its own expert, and the expert bank is
 sharded across devices along the ``dof``/``ep`` mesh axis while scenarios
 stay on ``dp``.
 
-TPU-native MoE dispatch (Mesh-TensorFlow / GShard style, no host logic):
+MoE dispatch (Mesh-TensorFlow / GShard style, no host logic):
 
   1. route:    expert id per scenario from a static κ-statistic bucketing;
   2. dispatch: one-hot (B, E, C) tensor D; expert inputs are the einsum

@@ -1,5 +1,5 @@
 """Explicit halo-exchange domain decomposition: differentiable distributed
-2D solves over ICI.
+2D solves over the device interconnect.
 
 GSPMD shards DOF axes automatically (parallel/sharding.py), but the survey's
 layer-6 mandate (SURVEY.md §7, §2b 'halo exchange of element-boundary
@@ -46,7 +46,7 @@ def _exchange_halos(u_loc: jax.Array, axis: str) -> Tuple[jax.Array, jax.Array]:
 
     row_above = last row of the previous shard (zeros on shard 0);
     row_below = first row of the next shard (zeros on the last shard).
-    One ppermute each way — nearest-neighbor traffic only, rides ICI.
+    One ppermute each way — nearest-neighbor traffic only.
     ``u_loc``: (..., h_local, W); halos are (..., 1, W).
     """
     n = jax.lax.axis_size(axis)
@@ -110,7 +110,7 @@ def halo_cg_solve(device_mesh: Mesh, C: jax.Array, m: jax.Array,
 
     C: (7, H, W) stencil planes (BC-free), m: (H, W) Dirichlet mask,
     b: (H, W) eliminated RHS.  All row-sharded over ``axis``; reductions
-    are global sums XLA lowers to psums over ICI.
+    are global sums XLA lowers to psums.
     """
     apply_K = make_halo_apply(device_mesh, axis)
     p_mask = 1.0 - m
@@ -145,7 +145,7 @@ def make_halo_solver(device_mesh: Mesh, grid: StructuredGrid, *,
     solve with ḡ as RHS + the closed-form residual-map cotangents,
     ops/stencil.py:residual_vjp_manual), so the sharded path produces the
     same gradients as the single-device solver — never autodiff through the
-    while_loop.  Per-scenario α/β via batched dots (psum over ICI).
+    while_loop.  Per-scenario α/β via batched dots (psum).
     """
     H, W = grid.node_shape
     maxit = maxiter if maxiter is not None else H * W

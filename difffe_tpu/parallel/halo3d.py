@@ -1,12 +1,12 @@
 """Explicit halo-exchange domain decomposition in 3D: differentiable
-distributed box solves over ICI.
+distributed box solves over the device interconnect.
 
 The 3D analogue of parallel/halo.py: shard the (nz+1, ny+1, nx+1) node
 grid by z-PLANES across the ``dof`` mesh axis.  The box operator is a
 7-point stencil (ops/stencil3d.py), so only the (±1,0,0) offsets cross
 shard boundaries — each CG matvec exchanges exactly one (ny+1, nx+1)
 plane with each z-neighbor via ``jax.lax.ppermute`` (nearest-neighbor
-traffic only, rides ICI), then applies the stencil locally.  Surface/
+traffic only), then applies the stencil locally.  Surface/
 volume ratio beats the 2D row split: halo bytes per shard are O(N²/P)
 against O(N³/P) local work.
 
@@ -112,7 +112,7 @@ def make_halo_solver_3d(device_mesh: Mesh, grid: StructuredGrid3, *,
     ``batch_axis`` (replicated if None).  nz+1 must divide the ``axis``
     size.  IFT adjoint + closed-form residual cotangents
     (ops/stencil3d.py:residual_vjp_manual_3d); per-scenario α/β via
-    batched dots (psum over ICI).
+    batched dots (psum).
     """
     D, H, W = grid.node_shape
     maxit = maxiter if maxiter is not None else D * H * W

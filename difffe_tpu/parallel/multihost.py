@@ -1,8 +1,9 @@
 """Multi-host initialization, failure detection, and scaling measurement.
 
-The reference has no distributed backend at all (SURVEY.md §5).  TPU-native
-equivalent: ``jax.distributed.initialize`` for multi-host slices (DCN for
-host coordination, ICI for collectives), a heartbeat-style health check, and
+The reference has no distributed backend at all (SURVEY.md §5).  Here:
+``jax.distributed.initialize`` for multi-process runs (the coordinator
+for host coordination, XLA collectives between devices), a heartbeat-style
+health check, and
 a scaling-efficiency harness for the ≥80% multi-host target (BASELINE.md).
 
 On a single host these are no-ops / single-process paths, so the same
@@ -32,7 +33,7 @@ def initialize(coordinator_address: Optional[str] = None,
     degrading every process to an independent single-host job.
     """
     if coordinator_address is None:
-        return  # single process / TPU pods auto-init via env
+        return  # single process: nothing to coordinate
     try:
         jax.distributed.initialize(coordinator_address=coordinator_address,
                                    num_processes=num_processes,

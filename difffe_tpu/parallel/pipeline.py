@@ -10,7 +10,7 @@ schedule with bubble fraction (P − 1)/(M + P − 1).
 Where the reference would thread torch modules over NCCL ranks, here the
 whole schedule is ONE jitted SPMD program: a ``shard_map`` over the device
 mesh whose stage hand-off is a single ``lax.ppermute`` of the microbatch
-state (ICI neighbor traffic only — no gather, no host).  The per-chunk
+state (neighbor traffic only — no gather, no host).  The per-chunk
 stepper is the ordinary ``control.heat`` backward-Euler scan, so every
 linear solve keeps its custom-VJP adjoint, and ``ppermute`` is linear with
 a ppermute transpose — the WHOLE pipeline is reverse-differentiable
@@ -143,7 +143,7 @@ def pipelined_rollout(
             done = (d == Pn - 1) & valid
             finals = jax.lax.dynamic_update_index_in_dim(
                 finals, jnp.where(done, new, finals[m]), m, axis=0)
-            # hand the (masked) state to the next stage — one ICI hop
+            # hand the (masked) state to the next stage — one hop
             cur = jax.lax.ppermute(vmask * new, axis, fwd)
 
         # finals live only on the last stage; costs are per-stage partials

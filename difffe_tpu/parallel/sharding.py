@@ -2,11 +2,11 @@
 
 The reference has zero parallelism (SURVEY.md §2b — no torch.distributed, no
 batching; one unbatched solve per call, /root/reference/diffhe/solver.py:49-67).
-This module supplies the TPU-native equivalents:
+This module supplies the device-mesh equivalents:
 
 * **DP — scenario-batch parallelism** (the workhorse axis): shard the
   B-scenario axis of (κ, f, u_data) over mesh axis ``"dp"``; per-scenario
-  adjoint solves are independent, gradient reductions ride ICI via the
+  adjoint solves are independent, gradient reductions ride the
   collectives XLA inserts under jit (or explicit ``psum`` in the
   ``shard_map`` variant below).
 * **TP/SP — DOF sharding**: shard the node/DOF axis over mesh axis
@@ -14,7 +14,8 @@ This module supplies the TPU-native equivalents:
   permutes — the domain's analogue of halo exchange.
 
 Everything uses GSPMD via ``jax.sharding`` + jit ``in_shardings``; no
-hand-written NCCL-style transport (ICI/DCN collectives come from XLA).
+hand-written transport (XLA emits the collectives, NCCL over NVLink
+between GPUs).
 """
 
 from __future__ import annotations
@@ -125,7 +126,7 @@ def make_inversion_step(
 
 
 # --------------------------------------------------------------------------
-# shard_map variant — explicit psum over ICI (the "comms backend" path)
+# shard_map variant — explicit psum (the "comms backend" path)
 # --------------------------------------------------------------------------
 
 def make_inversion_step_shard_map(
@@ -149,7 +150,7 @@ def make_inversion_step_shard_map(
         u = jax.vmap(solve_one)(log_k, f)
         sq = jnp.sum((u - u_data) ** 2)
         cnt = jnp.asarray(u.size, u.dtype)
-        # explicit ICI reduction across the scenario shards
+        # explicit reduction across the scenario shards
         total = jax.lax.psum(sq, "dp")
         n = jax.lax.psum(cnt, "dp")
         return total / n

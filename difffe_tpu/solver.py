@@ -5,7 +5,7 @@ Capability parity with reference ``DifferentiableFESolver``
 Dirichlet BCs on 1D interval / 2D triangle P1 meshes, with gradients flowing
 to κ (and here also to f, node coordinates, and BC values).
 
-TPU-native differences:
+Differences from the reference:
   * pure function ``solve_poisson(mesh, kappa, f)`` — jit/vmap/grad
     composable; the ``DifferentiableFESolver`` class is a thin wrapper kept
     for the reference's ergonomics (``solver(f)``).
@@ -45,9 +45,8 @@ def _resolve_method(mesh: FEMesh, method: str, kappa=None,
         return "tridiag"
     # Structured rectangle/box meshes carry their grid metadata
     # (FEMesh.grid): route to the closed-form stencil operators
-    # (ops/stencil.py, ops/stencil3d.py) — the measured TPU fast paths —
-    # whenever the problem fits them (isotropic κ, no Neumann/Robin terms,
-    # factory Dirichlet boundary).
+    # (ops/stencil.py, ops/stencil3d.py) whenever the problem fits them
+    # (isotropic κ, no Neumann/Robin terms, factory Dirichlet boundary).
     if (structured_ok and mesh.grid is not None
             and (kappa is None or not is_tensor_kappa(mesh, kappa))):
         return "stencil"
@@ -185,12 +184,11 @@ def solve_poisson(
         route (the 5-/7-point reductions are isotropic-only);
         method='auto' handles the fallback.
     f : (n_nodes,) nodal forcing values.
-    method : 'auto' | 'dense' | 'lu' | 'tridiag' | 'tridiag_pallas' | 'cg'
-        | 'stencil'.  'auto' picks the fastest path the problem fits:
-        tridiag for 1D chains, the closed-form structured stencil solvers
-        for ``FEMesh.rectangle``/``FEMesh.box`` meshes (isotropic κ, no
-        Neumann/Robin — the measured TPU production paths), dense
-        Cholesky / matrix-free CG otherwise.
+    method : 'auto' | 'dense' | 'lu' | 'tridiag' | 'cg' | 'stencil'.
+        'auto' picks the fastest path the problem fits: tridiag for 1D
+        chains, the closed-form structured stencil solvers for
+        ``FEMesh.rectangle``/``FEMesh.box`` meshes (isotropic κ; 2D also
+        with Neumann/Robin), dense Cholesky / matrix-free CG otherwise.
     bc_values : optional (n_nodes,) override of the mesh's Dirichlet values
         (per-scenario BC perturbations batch via ``solve_poisson_batched``).
     neumann : optional (n_nodes,) natural-BC boundary load (built with
@@ -239,7 +237,7 @@ def solve_poisson(
         except jax.errors.TracerArrayConversionError:
             pass
 
-    if method in ("tridiag", "tridiag_pallas"):
+    if method == "tridiag":
         if mesh.dim != 1:
             raise ValueError(f"method={method!r} requires a 1D mesh")
         d, e = assemble_tridiag_1d(mesh, kappa)
@@ -254,8 +252,7 @@ def solve_poisson(
             from .ops.robin import robin_diag
             d = d + robin_diag(mesh, robin)
             F = F + robin.load
-        backend = "pallas" if method == "tridiag_pallas" else "xla"
-        return _tridiag.solve_poisson_tridiag(mesh, d, e, F, backend=backend,
+        return _tridiag.solve_poisson_tridiag(mesh, d, e, F,
                                               bc_values=bc_values)
 
     if bc_values is not None:
@@ -382,10 +379,11 @@ def solve_poisson_batched(
             and kw.get("neumann") is None and kw.get("robin") is None
             and _mask_is_factory(mesh)
             and f.shape[0] >= 128):
-        # Batch-minor layout: keep the scenario batch on the tiled lane
-        # axis through the whole CG (ops/stencil3d.py module note) — the
-        # measured fast 3D layout for B ≥ 128 (choose_3d_path boundary);
-        # below that the per-scenario vmap fallthrough wins.
+        # Batch-minor layout: the scenario batch stays the trailing axis
+        # through the whole CG (ops/stencil3d.py module note).  B ≥ 128
+        # is the choose_3d_path threshold, a layout rule for the
+        # benchmark to re-decide (ROADMAP); below it the per-scenario
+        # vmap fallthrough runs.
         from .ops.assembly import kappa_on_elements
         from .ops.stencil3d import solve_poisson_structured_3d_batched
         grid = mesh.grid
@@ -405,92 +403,7 @@ def solve_poisson_batched(
             g.reshape(grid.node_shape), tol, maxiter)
         return u.reshape(B, mesh.n_nodes)
 
-    if (method == "stencil" and mesh.dim == 2 and f_batched
-            and not (g_batched or _nm_b or _rb_b)
-            and kw.get("neumann") is None and kw.get("robin") is None
-            and _mask_is_factory(mesh)
-            and kw.get("cg_tol") == 0.0 and kw.get("cg_maxiter")
-            and kw["cg_maxiter"] <= 256):
-        # Fixed-trip batched rectangle solves ride the VMEM-resident
-        # whole-CG Pallas kernel (≈1.6× the XLA stencil path at 64² —
-        # docs/PERFORMANCE.md config-4 table) wherever it compiles;
-        # tol-gated solves stay on the XLA while_loop below.
-        from .ops.assembly import kappa_on_elements
-        from .ops.pallas.stencil_cg_kernel import (choose_2d_path,
-                                                   solve_structured_pallas)
-        grid = mesh.grid
-        if choose_2d_path(grid, block_b=8) == "fused":
-            from .ops.stencil import kappa_lu_from_elements
-            B = f.shape[0]
-            if k_batched:
-                keB = jnp.broadcast_to(kappa[:, None],
-                                       (B, mesh.n_elements)) \
-                    if kappa.ndim == 1 \
-                    else jax.vmap(
-                        lambda k: kappa_on_elements(mesh, k))(kappa)
-            else:
-                keB = jnp.broadcast_to(kappa_on_elements(mesh, kappa),
-                                       (B, mesh.n_elements))
-            klu = kappa_lu_from_elements(grid, keB)
-            g = mesh.bc_values if bc_values is None else bc_values
-            u = solve_structured_pallas(
-                grid, klu, f.reshape((B,) + grid.node_shape),
-                g.reshape(grid.node_shape), int(kw["cg_maxiter"]), 8)
-            return u.reshape(B, mesh.n_nodes)
-
-    if (method == "stencil" and mesh.dim == 2 and f_batched
-            and not g_batched
-            and (_nm is not None or _rb is not None
-                 or not _mask_is_factory(mesh))
-            and kw.get("cg_tol") == 0.0 and kw.get("cg_maxiter")
-            and kw["cg_maxiter"] <= 256):
-        # Batched fixed-trip NATURAL-BC / custom-mask rectangle solves
-        # keep kernel-class throughput: fold Neumann loads, axis-adjacent
-        # Robin terms, and the general Dirichlet mask into the whole-CG
-        # Pallas kernel's planes (VERDICT-r4 item 4).  Falls through to
-        # the vmapped XLA natural path when the Robin pattern doesn't
-        # fold or the kernel doesn't fit this grid.
-        from .ops.pallas.stencil_cg_kernel import choose_2d_path
-        from .ops.stencil_natural import (fold_robin_planes,
-                                          robin_is_axis_adjacent,
-                                          solve_structured_pallas_natural)
-        grid = mesh.grid
-        foldable = True
-        C_r = rload = None
-        if _rb is not None:
-            try:
-                if not robin_is_axis_adjacent(grid, _rb.rows, _rb.cols):
-                    raise ValueError("not axis-adjacent")
-                C_r, rload = fold_robin_planes(grid, _rb.rows, _rb.cols,
-                                               _rb.vals, _rb.load)
-            except ValueError:
-                foldable = False
-        if foldable and choose_2d_path(grid, block_b=8) == "fused":
-            from .ops.assembly import kappa_on_elements
-            from .ops.stencil import kappa_lu_from_elements
-            B = f.shape[0]
-            if k_batched:
-                keB = jnp.broadcast_to(kappa[:, None],
-                                       (B, mesh.n_elements)) \
-                    if kappa.ndim == 1 \
-                    else jax.vmap(
-                        lambda k: kappa_on_elements(mesh, k))(kappa)
-            else:
-                keB = jnp.broadcast_to(kappa_on_elements(mesh, kappa),
-                                       (B, mesh.n_elements))
-            klu = kappa_lu_from_elements(grid, keB)
-            H, W = grid.node_shape
-            g = (mesh.bc_values if bc_values is None
-                 else bc_values).reshape(H, W)
-            mk = mesh.bc_mask.reshape(H, W).astype(f.dtype)
-            qn = None if _nm is None else jnp.asarray(
-                _nm, f.dtype).reshape(jnp.shape(_nm)[:-1] + (H, W))
-            u = solve_structured_pallas_natural(
-                grid, klu, f.reshape((B, H, W)), g, mk, qn, C_r, rload,
-                int(kw["cg_maxiter"]), 8)
-            return u.reshape(B, mesh.n_nodes)
-
-    if method in ("tridiag", "tridiag_pallas") and mesh.dim == 1:
+    if method == "tridiag" and mesh.dim == 1:
         # Fast path: assemble batched bands directly — no vmap, one fused
         # batched PCR over the whole scenario block.
         if k_batched and kappa.ndim == 1:
@@ -518,8 +431,7 @@ def solve_poisson_batched(
         F = jnp.broadcast_to(F, lead + F.shape[-1:])
         d = jnp.broadcast_to(d, lead + d.shape[-1:])
         e = jnp.broadcast_to(e, lead + e.shape[-1:])
-        backend = "pallas" if method == "tridiag_pallas" else "xla"
-        return _tridiag.solve_poisson_tridiag(mesh, d, e, F, backend=backend,
+        return _tridiag.solve_poisson_tridiag(mesh, d, e, F,
                                               bc_values=bc_values)
 
     neumann = kw.pop("neumann", None)

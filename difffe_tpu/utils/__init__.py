@@ -4,7 +4,8 @@ from .checkpoint import CheckpointManager
 from .debug import check_deterministic, golden_compare, nan_guard
 from .config import BASELINE_CONFIGS, ScenarioConfig
 from .metrics import MetricsLogger
-from .profiling import Roofline, TimingResult, roofline, timeit_jax, trace
+from .profiling import (DEVICE_PEAKS, Roofline, TimingResult, device_peaks,
+                        roofline, timeit_jax, trace)
 
 __all__ = [
     "CheckpointManager",
@@ -14,6 +15,8 @@ __all__ = [
     "BASELINE_CONFIGS",
     "ScenarioConfig",
     "MetricsLogger",
+    "DEVICE_PEAKS",
+    "device_peaks",
     "Roofline",
     "TimingResult",
     "roofline",

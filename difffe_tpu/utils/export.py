@@ -30,7 +30,7 @@ def export_fn(fn: Callable, *example_args,
     """Serialize a jitted callable for the given example shapes.
 
     ``platforms`` defaults to the current backend; pass e.g.
-    ``["tpu", "cpu"]`` to build a multi-platform artifact.
+    ``["cuda", "cpu"]`` to build a multi-platform artifact.
     """
     shapes = [jax.ShapeDtypeStruct(jnp.shape(a), jnp.result_type(a))
               for a in example_args]

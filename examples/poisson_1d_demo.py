@@ -1,4 +1,4 @@
-"""1D Poisson demo — the reference's flagship walkthrough, TPU-native.
+"""1D Poisson demo — the reference's flagship walkthrough in JAX.
 
 Reproduces /root/reference/examples/poisson_1d_demo.py's three stages with
 the same published numbers (reference README 'Expected output'):
@@ -7,7 +7,7 @@ the same published numbers (reference README 'Expected output'):
   3. κ-recovery inverse problem: data from κ=2, 200 Adam steps → κ ≈ 2.0000
 
 Run: python examples/poisson_1d_demo.py  [--f32]
-(defaults to the float64 golden path; --f32 uses the TPU production dtype)
+(defaults to the float64 golden path; --f32 uses the production dtype)
 """
 
 import sys

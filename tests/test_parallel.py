@@ -156,7 +156,7 @@ def test_timed_block_returns_false_on_stall():
     the CPU backend a genuinely-stalled *dispatch* can't be fabricated —
     XLA runs host callbacks inline in the calling thread — so the stall is
     injected at exactly the call the watchdog wraps, which is the code
-    path a hung TPU collective exercises.)"""
+    path a hung collective exercises.)"""
     import time as _time
     from difffe_tpu.parallel.multihost import timed_block_until_ready
 

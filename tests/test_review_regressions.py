@@ -201,19 +201,6 @@ class TestSecondReviewRound:
             train_pde_batched(keys, mesh, f_batch, n_epochs=2,
                               kappa=jnp.ones(B))
 
-    def test_pallas_layout_override(self):
-        from difffe_tpu.ops.pallas.tridiag_kernel import tridiag_solve_pallas
-        from difffe_tpu.ops.tridiag import tridiag_solve
-        key = jax.random.PRNGKey(0)
-        d = 2.0 + jax.random.uniform(key, (4, 33))
-        e = -jnp.ones((4, 32)) * 0.5
-        F = jnp.ones((4, 33))
-        u_ref = tridiag_solve(d, e, F)
-        for layout in ["auto", "batch", "transposed"]:
-            u = tridiag_solve_pallas(d, e, F, 64, layout)
-            np.testing.assert_allclose(np.asarray(u), np.asarray(u_ref),
-                                       atol=1e-10)
-
 
 class TestPostConvergenceStability:
     """Fixed-trip CG far past convergence must NOT diverge (round-4

@@ -326,67 +326,3 @@ def test_kappa_mse_grad_step_matches_autodiff():
                                     warm_state=st)
     np.testing.assert_allclose(float(L3), float(L), rtol=1e-10)
     np.testing.assert_allclose(np.array(G3), np.array(G), atol=1e-16)
-
-
-class TestGradStepDispatch:
-    """choose_3d_grad_step encodes the measured round-4 boundaries."""
-
-    def test_small_grid_stays_xla_batchminor(self):
-        from difffe_tpu.ops.stencil3d import (StructuredGrid3,
-                                              choose_3d_grad_step)
-        assert choose_3d_grad_step(StructuredGrid3.unit(16, 16, 16),
-                                   256) == "xla_bm"
-
-    def test_32cube_takes_pallas_kernel(self):
-        from difffe_tpu.ops.stencil3d import (StructuredGrid3,
-                                              choose_3d_grad_step)
-        assert choose_3d_grad_step(StructuredGrid3.unit(32, 32, 32),
-                                   128) == "pallas"
-
-    def test_64cube_small_batch_takes_kernel(self):
-        # round-5 recalibration: 64³ compiles and runs (345
-        # grad-solves/s f32 at B=8, scripts/probe_3d_bf16.py) — the old
-        # 19-plane VMEM estimate was wrong
-        from difffe_tpu.ops.stencil3d import (StructuredGrid3,
-                                              choose_3d_grad_step)
-        assert choose_3d_grad_step(StructuredGrid3.unit(64, 64, 64),
-                                   8) == "pallas"
-
-    def test_64cube_chunked_f32_falls_back(self):
-        # chunked launches tolerate less VMEM headroom: 64³ f32 with
-        # B>8 fails the compile helper (measured), bf16 coefficient
-        # storage fits and keeps the kernel
-        from difffe_tpu.ops.stencil3d import (StructuredGrid3,
-                                              choose_3d_grad_step)
-        import jax.numpy as jnp
-        g = StructuredGrid3.unit(64, 64, 64)
-        assert choose_3d_grad_step(g, 32) == "xla_bm"
-        assert choose_3d_grad_step(g, 32, jnp.bfloat16) == "pallas"
-
-    def test_deep_iteration_budget(self):
-        # iters>32 launches allocate more scoped VMEM (measured 16 MB
-        # cliff): 64³ f32 compiles at iters-32 but not iters-100 —
-        # fit_kappa's κ-safe setting must fall back; bf16 keeps it
-        import jax.numpy as jnp
-        from difffe_tpu.ops.stencil3d import (StructuredGrid3,
-                                              choose_3d_grad_step)
-        g = StructuredGrid3.unit(64, 64, 64)
-        assert choose_3d_grad_step(g, 8, iters=100) == "xla_bm"
-        assert choose_3d_grad_step(g, 8, jnp.bfloat16,
-                                   iters=100) == "pallas"
-        g48 = StructuredGrid3.unit(48, 48, 48)
-        assert choose_3d_grad_step(g48, 32, iters=100) == "pallas"
-
-    def test_48cube_block_b(self):
-        # bb=2 is +45% but f32 sits on the 16 MB scoped-VMEM cliff
-        # (iters-100 fails) — it ships only with bf16 coefficients
-        import jax.numpy as jnp
-        from difffe_tpu.ops.stencil3d import (StructuredGrid3,
-                                              choose_3d_block_b,
-                                              choose_3d_grad_step)
-        g = StructuredGrid3.unit(48, 48, 48)
-        assert choose_3d_grad_step(g, 32) == "pallas"
-        assert choose_3d_block_b(g, 32) == 1
-        assert choose_3d_block_b(g, 32, jnp.bfloat16) == 2
-        # non-divisible batches keep bb=1
-        assert choose_3d_block_b(g, 9, jnp.bfloat16) == 1

@@ -184,9 +184,8 @@ class TestRobinStructured:
 
 
 class TestNaturalPallasRoute:
-    """Batched fixed-trip natural-BC solves ride the whole-CG Pallas
-    kernel (interpret mode on CPU) — kernel-class throughput for
-    flux-BC users (VERDICT-r4 item 4)."""
+    """Batched fixed-trip natural-BC solves keep the structured stencil
+    route (per-scenario PCG under vmap) for flux-BC users."""
 
     def test_batched_fixed_trip_neumann_matches_dense(self):
         mesh = left_dirichlet_rectangle(8, 8)
@@ -267,8 +266,8 @@ class TestGeneralDirichletMask:
         assert abs(float(u_st[pin]) - 0.7) < 1e-12
 
     def test_batched_fixed_trip_respects_custom_mask(self):
-        """The batched fixed-trip Pallas route folds the FACTORY mask, so
-        a custom-mask mesh (grid kept) must not take it — regression for
+        """A custom-mask mesh (grid kept) must solve with ITS mask on the
+        batched fixed-trip route, not the factory one — regression for
         the silent-wrong-answer hazard."""
         full = FEMesh.rectangle(nx=8, ny=8, dtype=jnp.float32)
         pin = full.n_nodes // 2

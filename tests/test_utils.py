@@ -135,10 +135,34 @@ class TestProfiling:
     def test_roofline_classification(self):
         from difffe_tpu.utils import TimingResult, roofline
         t = TimingResult(mean_s=1e-3, min_s=1e-3, iters=1)
-        r_mem = roofline(t, flops=1e6, bytes_moved=1e9, chip="tpu_v5e")
+        h100 = "NVIDIA H100 80GB HBM3"
+        r_mem = roofline(t, flops=1e6, bytes_moved=1e9, device_kind=h100)
         assert r_mem.bound == "memory"
-        r_cmp = roofline(t, flops=1e12, bytes_moved=1e6, chip="tpu_v5e")
+        # 1 GB in 1 ms against the 3.35 TB/s data-sheet bandwidth
+        np.testing.assert_allclose(r_mem.bandwidth_fraction, 1000 / 3350)
+        r_cmp = roofline(t, flops=1e12, bytes_moved=1e6, device_kind=h100)
         assert r_cmp.bound == "compute"
+        np.testing.assert_allclose(r_cmp.flops_fraction, 1000 / 67)
+        r_bf = roofline(t, flops=1e12, bytes_moved=1e6, device_kind=h100,
+                        dtype="bf16")
+        np.testing.assert_allclose(r_bf.flops_fraction, 1000 / 989)
+
+    def test_h100_peaks_carry_their_source(self):
+        from difffe_tpu.utils import device_peaks
+        p = device_peaks("NVIDIA H100 80GB HBM3")
+        assert (p.bf16_tflops, p.tf32_tflops, p.f32_tflops,
+                p.hbm_gbps) == (989.0, 495.0, 67.0, 3350.0)
+        assert "data sheet" in p.source
+
+    @pytest.mark.parametrize("kind", ["cpu", "NVIDIA A100-SXM4-80GB",
+                                      "NVIDIA H100 PCIe", ""])
+    def test_unknown_device_kind_raises(self, kind):
+        from difffe_tpu.utils import TimingResult, device_peaks, roofline
+        with pytest.raises(ValueError, match="no published peaks"):
+            device_peaks(kind)
+        t = TimingResult(mean_s=1e-3, min_s=1e-3, iters=1)
+        with pytest.raises(ValueError, match="no published peaks"):
+            roofline(t, flops=1.0, bytes_moved=1.0, device_kind=kind)
 
 
 class TestCLI:
