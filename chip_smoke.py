@@ -25,7 +25,7 @@ counterparts run at "highest" precision.  Every check raises on failure;
 nothing is caught.
 
     python chip_smoke.py            # one GPU, every phase above
-    python chip_smoke.py --multi    # four GPUs: sharded vs one device
+    python chip_smoke.py --multi    # four GPUs: sharded vs one device (f64)
 
 The last line of standard output is one JSON object,
 ``{"ok": true, "device": {"platform": ..., "kind": ..., "count": ...}}``.
@@ -201,7 +201,7 @@ def phase_1d(n_elements: int, batch: int, steps: int = 64,
     log(f"1D line({n_elements}) B={batch} steps={steps}: "
         f"{time.perf_counter() - t0:.2f} s incl. compile")
     _falls("1D", info, log)
-    route = fit_route(1, jax.default_backend())
+    route = fit_route(1, jax.default_backend(), n_elements=n_elements)
     assert info["path"] == route, (info["path"], route)
     assert kappa.shape == (batch, n_elements)
 
@@ -419,13 +419,9 @@ def phase_unstructured(n: int, batch: int, steps: int = 32,
                        parity: int = 2, maxiter: int = 1024, log=print):
     """The ``cli invert --dim 2 --unstructured`` workload."""
     import jax
-    import jax.numpy as jnp
 
     from difffe_tpu.cli import invert_workload
     from difffe_tpu.inverse import fit_kappa
-    from difffe_tpu.ops.unstructured import (build_ell,
-                                             solve_poisson_cg_ell_batched)
-    from difffe_tpu.ops.assembly import assemble_load
 
     mesh, fB, u_data, k_true = invert_workload(2, n, batch,
                                                unstructured=True)
@@ -440,40 +436,53 @@ def phase_unstructured(n: int, batch: int, steps: int = 32,
 
     S = parity
     kp = 0.5 * (1.0 + k_true[:S])
-    ell = build_ell(mesh)
-    FB = assemble_load(mesh, fB[:S])
-    ud = u_data[:S]
-
-    def loss(k):
-        u = solve_poisson_cg_ell_batched(mesh, ell, k, FB, 0.0, maxiter)
-        return 0.5 * jnp.sum((u - ud) ** 2), u
-
-    vg = jax.jit(jax.value_and_grad(loss, has_aux=True))
-    with jax.default_matmul_precision("highest"):
-        (_, u), g = vg(kp)
-    refs = [ref_solve_grad(mesh.nodes, mesh.elements, mesh.bc_mask,
-                           mesh.bc_values, kp[b], fB[b], ud[b])
-            for b in range(S)]
-    check(f"unstructured u vs f64 (f32 ELL CG, {maxiter} it)",
-          rel_err(u, [r[0] for r in refs]), 1e-4, log)
-    check("unstructured grad vs f64 (f32 ELL CG adjoint)",
-          rel_err(g, [r[1] for r in refs]), 1e-3, log)
+    u_err, g_err, vg = unstructured_parity(mesh, kp, fB[:S], u_data[:S],
+                                           maxiter)
+    check(f"unstructured u vs f64 (f32 ELL CG, {maxiter} it)", u_err, 1e-4,
+          log)
+    check("unstructured grad vs f64 (f32 ELL CG adjoint)", g_err, 1e-3, log)
     memory_line("unstructured ELL grad step", vg, kp, log=log)
     peak_line(log)
     return info
+
+
+def unstructured_parity(mesh, kappa, fB, u_data, maxiter: int):
+    """Edge-ELL batched solve and its adjoint κ-gradient vs the scipy
+    f64 reference: (u rel err, grad rel err, the jitted value_and_grad)."""
+    import jax
+    import jax.numpy as jnp
+
+    from difffe_tpu.ops.assembly import assemble_load
+    from difffe_tpu.ops.unstructured import (build_ell,
+                                             solve_poisson_cg_ell_batched)
+
+    ell = build_ell(mesh)
+    FB = assemble_load(mesh, fB)
+
+    def loss(k):
+        u = solve_poisson_cg_ell_batched(mesh, ell, k, FB, 0.0, maxiter)
+        return 0.5 * jnp.sum((u - u_data) ** 2), u
+
+    vg = jax.jit(jax.value_and_grad(loss, has_aux=True))
+    with jax.default_matmul_precision("highest"):
+        (_, u), g = vg(kappa)
+    refs = [ref_solve_grad(mesh.nodes, mesh.elements, mesh.bc_mask,
+                           mesh.bc_values, kappa[b], fB[b], u_data[b])
+            for b in range(len(kappa))]
+    return (rel_err(u, [r[0] for r in refs]),
+            rel_err(g, [r[1] for r in refs]), vg)
 
 
 def phase_multi(n_dev: int = 4, n2d: int = 64, batch: int = 256,
                 n3d: int = 16, log=print):
     """Sharded paths on a dp × dof mesh vs the same computation on one
     device: make_inversion_step at a config-4 shape, and the 2D and 3D
-    halo solvers forward + κ-gradient."""
+    halo solvers forward + κ-gradient.  Everything runs in float64, so a
+    check sees the partitioning (collectives, halo exchange, psum'd dots)
+    and not float32 CG rounding."""
     import jax
-    import jax.numpy as jnp
 
-    from difffe_tpu.mesh import FEMesh
-    from difffe_tpu.parallel import make_device_mesh, make_inversion_step
-    from difffe_tpu.solver import solve_poisson_batched
+    from difffe_tpu.parallel import make_device_mesh
 
     devs = jax.devices()[:n_dev]
     assert len(devs) == n_dev, f"--multi needs {n_dev} devices"
@@ -482,48 +491,73 @@ def phase_multi(n_dev: int = 4, n2d: int = 64, batch: int = 256,
     dmesh = make_device_mesh(devices=devs, mesh_shape=(dp, dof))
     one = make_device_mesh(devices=devs[:1], mesh_shape=(1, 1))
     log(f"multi: dp={dp} x dof={dof} on {[d.id for d in devs]}")
-
-    # (1) config-4 inversion step: 64 x (64-1) elements so the node count
-    # (65·64) splits over dof; B scenarios over dp
-    fe = FEMesh.rectangle(n2d, n2d - 1, dtype=jnp.float32)
-    f = jnp.prod(jnp.sin(jnp.pi * fe.nodes), axis=1) * 10.0
-    fB = jnp.broadcast_to(f, (batch, fe.n_nodes))
-    # κ_true away from the start κ = 1, so no scenario's gradient sits at
-    # rounding level (Adam's first step is lr·sign(g))
-    k_true = jnp.linspace(1.3, 2.5, batch, dtype=jnp.float32)
-    ud = solve_poisson_batched(fe, k_true, fB, kappa_batched=True,
-                               cg_tol=0.0, cg_maxiter=256)
-    res = {}
-    for name, dm, dof_sh in (("sharded", dmesh, True), ("one", one, False)):
-        init_fn, step_fn, data_sh = make_inversion_step(
-            fe, dm, lr=0.05, shard_dof=dof_sh)
-        lk, st = init_fn(jnp.zeros((batch,), jnp.float32))
-        f_s, u_s = jax.device_put(fB, data_sh), jax.device_put(ud, data_sh)
-        t0 = time.perf_counter()
-        lk1, st, loss1 = step_fn(lk, st, f_s, u_s)
-        _, _, loss2 = step_fn(lk1, st, f_s, u_s)
-        jax.block_until_ready(loss2)
-        log(f"  inversion step {name} (f32): 2 steps "
-            f"{time.perf_counter() - t0:.2f} s incl. compile, "
-            f"losses {float(loss1):.6e} {float(loss2):.6e}")
-        res[name] = (np.asarray(lk1), float(loss1), float(loss2))
-    # f32 CG at the facade's 1e-6 tolerance: the losses (the batch of
-    # solves at κ₀ and κ₁) are compared, and κ₁ (Adam's first step,
-    # lr·g/|g|); the second step's κ would amplify the f32 CG noise
-    for i, what in ((0, "log_k after step 1"), (1, "loss at step 1"),
-                    (2, "loss at step 2")):
-        check(f"multi inversion {what} sharded vs one device (f32)",
-              rel_err(res["sharded"][i], res["one"][i]), 1e-5, log)
-
-    # The halo solvers are compared in float64, so the check sees the
-    # partitioned algorithm (halo exchange, psum'd dots) and not f32
-    # CG rounding, which alone reaches ~1e-5 in the 64² gradient.
     x64 = jax.config.jax_enable_x64
     jax.config.update("jax_enable_x64", True)
     try:
+        _inversion_parity(dmesh, one, n2d, batch, log)
         _halo_parity(dmesh, dp, n2d, n3d, log)
     finally:
         jax.config.update("jax_enable_x64", x64)
+
+
+def inversion_workload(n2d: int, batch: int, dtype):
+    """Config-4 κ-field inversion: rectangle(n2d, n2d − 1), so the node
+    count (n2d + 1)·n2d splits over the dof axis, a random per-element κ
+    field per scenario, one shared forcing, converged observations."""
+    import jax.numpy as jnp
+
+    from difffe_tpu.mesh import FEMesh
+    from difffe_tpu.solver import solve_poisson_batched
+
+    fe = FEMesh.rectangle(n2d, n2d - 1, dtype=dtype)
+    f = jnp.prod(jnp.sin(jnp.pi * fe.nodes), axis=1) * 10.0
+    fB = jnp.broadcast_to(f, (batch, fe.n_nodes))
+    rng = np.random.default_rng(4)
+    k_true = jnp.asarray(rng.uniform(0.5, 2.0, (batch, fe.n_elements)),
+                         dtype)
+    ud = solve_poisson_batched(fe, k_true, fB, kappa_batched=True)
+    return fe, fB, ud
+
+
+def inversion_run(fe, fB, ud, dmesh, shard_dof: bool):
+    """make_inversion_step on ``dmesh`` from log κ = 0 (B, n_elements):
+    the loss gradient (one ``optax.sgd(1.0)`` step's update, negated),
+    the loss at κ₀, and log κ after two Adam steps."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from difffe_tpu.parallel import make_inversion_step
+
+    lk0 = jnp.zeros(fB.shape[:1] + (fe.n_elements,), fB.dtype)
+    out = []
+    for opt in (optax.sgd(1.0), optax.adam(0.05)):
+        init_fn, step_fn, data_sh = make_inversion_step(
+            fe, dmesh, shard_dof=shard_dof, optimizer=opt)
+        f_s, u_s = jax.device_put(fB, data_sh), jax.device_put(ud, data_sh)
+        lk, st = init_fn(lk0)
+        lk1, st, loss0 = step_fn(lk, st, f_s, u_s)
+        out.append((lk1, loss0, step_fn(lk1, st, f_s, u_s)[0]))
+    (lk_sgd, loss0, _), (_, _, lk_adam2) = out
+    return (-np.asarray(lk_sgd), float(loss0), np.asarray(lk_adam2))
+
+
+def _inversion_parity(dmesh, one, n2d, batch, log):
+    """make_inversion_step sharded over dp × dof vs one device (f64)."""
+    import jax.numpy as jnp
+
+    fe, fB, ud = inversion_workload(n2d, batch, jnp.float64)
+    res = {}
+    for name, dm, dof_sh in (("sharded", dmesh, True), ("one", one, False)):
+        t0 = time.perf_counter()
+        res[name] = inversion_run(fe, fB, ud, dm, dof_sh)
+        log(f"  inversion step {name} (f64, κ-field {batch} x "
+            f"{fe.n_elements}): {time.perf_counter() - t0:.2f} s incl. "
+            f"compile, loss at κ0 {res[name][1]:.9e}")
+    for i, what in ((0, "loss gradient"), (1, "loss at κ0"),
+                    (2, "log κ after two Adam steps")):
+        check(f"multi inversion {what} sharded vs one device (f64)",
+              rel_err(res["sharded"][i], res["one"][i]), 1e-5, log)
 
 
 def _halo_parity(dmesh, dp, n2d, n3d, log):

@@ -93,17 +93,27 @@ def recover_kappa_scalar(
     return jnp.exp(log_k), losses
 
 
-def fit_route(dim: int, backend: str, shared_forcing: bool = True) -> str:
+#: longest 1D chain the Pallas-Triton kernel serves.  One block row holds
+#: a scenario's whole chain; on an H100 (700 W) the kernel was faster end
+#: to end up to 8,192 elements and slower at 16,384, where its 8-warp
+#: rows spill registers (scripts/tune_cf_chain.py, docs/PERFORMANCE.md)
+CHAIN_MAX_ELEMENTS = 8192
+
+
+def fit_route(dim: int, backend: str, shared_forcing: bool = True,
+              n_elements: Optional[int] = None) -> str:
     """The route ``fit_kappa`` takes for a factory ``FEMesh.line`` /
     ``rectangle`` / ``box`` mesh of dimension ``dim`` on ``backend``
     (``jax.default_backend()``).
 
-    1D with a shared forcing runs the Pallas-Triton SGD chain on a GPU
-    and the XLA closed form everywhere else (the kernel is compiled for
-    the card only; tests run it with ``interpret=True``).  2D and 3D run
-    the XLA stencil grad steps on every backend."""
+    1D with a shared forcing and at most :data:`CHAIN_MAX_ELEMENTS`
+    elements runs the Pallas-Triton SGD chain on a GPU, and the XLA
+    closed form otherwise (the kernel is compiled for the card only;
+    tests run it with ``interpret=True``).  2D and 3D run the XLA
+    stencil grad steps on every backend."""
     if dim == 1:
-        if backend == "gpu" and shared_forcing:
+        if (backend == "gpu" and shared_forcing
+                and (n_elements or 0) <= CHAIN_MAX_ELEMENTS):
             return "cf_chain_triton"
         return "cf_xla"
     if dim == 2:
@@ -424,7 +434,7 @@ def _fit_kappa_1d(mesh, f, u_data, steps, lr, kappa0, eval_final,
 
     f_shared = bool(jax.device_get((f == f[:1]).all())) if B > 1 else True
     if route is None:
-        route = fit_route(1, jax.default_backend(), f_shared)
+        route = fit_route(1, jax.default_backend(), f_shared, ne)
     F = assemble_load(mesh, f[0] if f_shared else f)
     hs = jnp.asarray(_element_widths(mesh), mesh.dtype)
     bc = np.asarray(mesh.bc_values, np.float64)

@@ -57,10 +57,16 @@ def _next_pow2(x: int) -> int:
 def _launch_config(N: int, B: int):
     """(rows per block, warps) for B scenarios of N padded elements.
 
-    Tuned on an H100 (docs/PERFORMANCE.md): at 30 elements × 2M scenarios
-    every block size from 1024 to 4096 elements runs within 3%; at
-    128 elements × 1024 scenarios 2-row blocks with 2 warps beat 32-row
-    blocks with 8 warps by 1.8×."""
+    From ``scripts/tune_cf_chain.py --sweep`` on an H100 80GB HBM3 with
+    a 700 W power limit (docs/PERFORMANCE.md), SGD loop alone: at
+    30 elements × 2M scenarios, blocks of 512 to 4,096 elements with
+    this rule's warp count (one warp per 128 elements, at most 8) all
+    run within 3% of the sweep's best, while 4,096-element blocks with
+    2 warps run 56% slower; at 128 elements × 1024 scenarios its 2-row,
+    2-warp blocks run within 9% of the best and 1.95× faster than
+    32-row, 8-warp blocks.  At 16,384 elements an 8-warp row spills
+    registers and loses to XLA, so ``fit_route`` keeps chains longer
+    than ``inverse.CHAIN_MAX_ELEMENTS`` on the XLA closed form."""
     rows = 1 << max(B // _MIN_BLOCKS, 1).bit_length() - 1
     rows = max(1, min(_BLOCK_ELEMS // N, rows))
     return rows, max(1, min(8, rows * N // 128))

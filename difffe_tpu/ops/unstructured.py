@@ -24,9 +24,9 @@ scatter, no assembly.  Padding slots carry zero weights (index 0), so
 they contribute exactly zero.  Dn is the max node degree (≤ 8 for
 reasonable triangulations).
 
-The per-element-κ gradient needs one scatter per GRAD STEP (the
-transpose of the κ gathers inside the residual-map VJP), not per
-iteration — that is the whole point.
+The per-element-κ gradient costs one element-wise contraction of nodal
+differences of u and the adjoint per GRAD STEP (_kappa_cotangent), not
+per-iteration work — that is the whole point.
 
 The matvec is plain XLA (a static-index gather plus a contraction); the
 decision record is docs/PERFORMANCE.md 'Unstructured meshes'.
@@ -189,17 +189,38 @@ def _ell_bwd(tol, maxiter, res, g):
     lam = pcg(lambda v: apply_dirichlet_operator(mesh, applyK, v), g,
               lambda r: Minv * r, jnp.zeros_like(g), tol, maxit)
 
-    # Residual map at fixed u — the ONE place a scatter appears (the
-    # transpose of the κ/F gathers), once per grad step.
-    def residual(mesh_, ell_, kappa_, F_):
+    # Residual map at fixed u for the mesh (Dirichlet values), ELL and F
+    # cotangents; κ's cotangent is taken element by element in
+    # difference form (_kappa_cotangent).
+    def residual(mesh_, ell_, F_):
         u_fixed = jax.lax.stop_gradient(u)
-        W_, d_ = ell_weights(mesh_, ell_, kappa_)
+        W_, d_ = ell_weights(mesh_, ell_, kappa)
         applyK_ = lambda w: ell_apply_w(ell_, W_, d_, w)
         return (dirichlet_rhs(mesh_, applyK_, F_)
                 - apply_dirichlet_operator(mesh_, applyK_, u_fixed))
 
-    _, vjp = jax.vjp(residual, mesh, ell, kappa, F)
-    return vjp(lam)
+    _, vjp = jax.vjp(residual, mesh, ell, F)
+    g_mesh, g_ell, g_F = vjp(lam)
+    gke = _kappa_cotangent(mesh, ((1.0 - mesh.bc_mask) * lam)[:, None],
+                           u[:, None])[:, 0]
+    _, vjp_k = jax.vjp(lambda k: kappa_on_elements(mesh, k), kappa)
+    return g_mesh, g_ell, vjp_k(gke)[0], g_F
+
+
+def _kappa_cotangent(mesh, lam, u):
+    """λᵀ ∂(F − K(κ)u)/∂κ_e for per-element κ, with (n, B) interior
+    adjoint λ and solution u: −λ_eᵀ G_e u_e, G_e the unit-κ element
+    stiffness.  Each row of G_e sums to zero (constants span its null
+    space), so this equals ½ Σ_pq G_pq (λ_p − λ_q)(u_p − u_q), a sum of
+    products of nodal differences.  −λᵀ(G_e u) itself cancels terms of
+    size |u| down to the element-to-element variation of u, which costs
+    float32 about a factor (diameter / h) of accuracy."""
+    el = mesh.elements
+    G = local_stiffness(mesh, jnp.ones((mesh.n_elements,), mesh.dtype))
+    ue, le = u[el], lam[el]                               # (ne, k, B)
+    du = ue[:, :, None] - ue[:, None, :]                  # (ne, k, k, B)
+    dl = le[:, :, None] - le[:, None, :]
+    return 0.5 * jnp.einsum("epq,epqb,epqb->eb", G, dl, du)
 
 
 solve_poisson_cg_ell.defvjp(_ell_fwd, _ell_bwd)
@@ -317,11 +338,11 @@ def _ell_bm_bwd(tol, maxiter, res, gbar):
               lambda r: Minv * r, jnp.zeros_like(gbm), tol, maxit,
               dot=_bm_dot_nodes)
 
-    # Residual map at fixed u (batch-minor): one scatter per grad step —
-    # the transpose of the κ gathers in ell_weights_bm.  Full R = b − A·u
-    # so Dirichlet-value cotangents flow too (as in _ell_bwd).
-    def residual(mesh_, ell_, kappa_, F_):
-        keB_, Fbm_ = _ell_bm_prep(mesh_, kappa_, F_)
+    # Residual map at fixed u (batch-minor).  Full R = b − A·u so
+    # Dirichlet-value cotangents flow too (as in _ell_bwd); κ's cotangent
+    # is taken in difference form (_kappa_cotangent).
+    def residual(mesh_, ell_, F_):
+        keB_, Fbm_ = _ell_bm_prep(mesh_, kappa, F_)
         W_, d_ = ell_weights_bm(mesh_, ell_, keB_)
         m_ = mesh_.bc_mask[:, None]
         p_ = 1.0 - m_
@@ -331,8 +352,11 @@ def _ell_bm_bwd(tol, maxiter, res, gbar):
         return m_ * (g_ - u_fixed) + p_ * (Fbm_
                                            - aK(m_ * g_ + p_ * u_fixed))
 
-    _, vjp = jax.vjp(residual, mesh, ell, kappa, F)
-    return vjp(lam)
+    _, vjp = jax.vjp(residual, mesh, ell, F)
+    g_mesh, g_ell, g_F = vjp(lam)
+    gkeB = _kappa_cotangent(mesh, p * lam, u)
+    _, vjp_k = jax.vjp(lambda k: _ell_bm_prep(mesh, k, F)[0], kappa)
+    return g_mesh, g_ell, vjp_k(gkeB)[0], g_F
 
 
 solve_poisson_cg_ell_batched.defvjp(_ell_bm_fwd, _ell_bm_bwd)

@@ -86,16 +86,20 @@ def make_inversion_step(
     lr: float = 0.1,
     method: str = "auto",
     shard_dof: bool = False,
+    optimizer: Optional[optax.GradientTransformation] = None,
 ):
     """Build (init_fn, step_fn) for scenario-batched κ recovery.
 
-    Each scenario b learns log κ_b minimizing MSE(u(exp(log κ_b), f_b),
-    u_data_b).  The per-scenario state is sharded over ``dp``; one jitted
-    step = B forward solves + B adjoint solves + Adam update, all on-device.
-    This is BASELINE config 2 ('1024 κ/forcing scenarios, 128-element mesh,
-    adjoint gradients') as a single pjit computation.
+    Each scenario b learns log κ_b — a scalar (B,) or a per-element field
+    (B, n_elements) — minimizing MSE(u(exp(log κ_b), f_b), u_data_b).  The
+    per-scenario state is sharded over ``dp``; one jitted step = B forward
+    solves + B adjoint solves + optimizer update, all on-device.  This is
+    BASELINE config 2 ('1024 κ/forcing scenarios, 128-element mesh,
+    adjoint gradients') as a single pjit computation.  ``optimizer``
+    defaults to ``optax.adam(lr)``; ``optax.sgd(1.0)`` makes one step's
+    update the loss gradient itself.
     """
-    opt = optax.adam(lr)
+    opt = optax.adam(lr) if optimizer is None else optimizer
     state_sh = batch_sharding(device_mesh)
     data_sh = batch_dof_sharding(device_mesh) if shard_dof \
         else batch_sharding(device_mesh)
@@ -106,7 +110,7 @@ def make_inversion_step(
     def loss_fn(log_k, f, u_data):
         u = jax.vmap(solve_one)(log_k, f)
         # per-scenario MSE, then mean over the (dp-sharded) batch — XLA
-        # lowers the mean to a psum over ICI
+        # lowers the mean to a psum across the dp axis
         return jnp.mean((u - u_data) ** 2)
 
     def init_fn(log_k0):

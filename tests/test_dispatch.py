@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from difffe_tpu.inverse import fit_kappa, fit_route
+from difffe_tpu.inverse import CHAIN_MAX_ELEMENTS, fit_kappa, fit_route
 from difffe_tpu.mesh import FEMesh
 from difffe_tpu.solver import solve_poisson, solve_poisson_batched
 
@@ -32,6 +32,24 @@ class TestFitRoute:
     @pytest.mark.parametrize("backend", ["gpu", "cpu"])
     def test_per_scenario_forcing_never_takes_the_kernel(self, backend):
         assert fit_route(1, backend, shared_forcing=False) == "cf_xla"
+
+    @pytest.mark.parametrize("ne,route", [
+        (30, "cf_chain_triton"), (CHAIN_MAX_ELEMENTS, "cf_chain_triton"),
+        (CHAIN_MAX_ELEMENTS + 1, "cf_xla"), (1 << 20, "cf_xla")])
+    def test_long_chains_leave_the_kernel_on_gpu(self, ne, route):
+        assert fit_route(1, "gpu", n_elements=ne) == route
+        assert fit_route(1, "cpu", n_elements=ne) == "cf_xla"
+
+    def test_fit_kappa_passes_the_chain_length(self, monkeypatch):
+        from difffe_tpu import inverse
+        seen = []
+        real = inverse.fit_route
+        monkeypatch.setattr(inverse, "fit_route", lambda *a, **k: (
+            seen.append(a), real(*a, **k))[1])
+        mesh = FEMesh.line(9, dtype=jnp.float32)
+        f = jnp.ones((2, mesh.n_nodes), jnp.float32)
+        fit_kappa(mesh, f, f * 0.01, steps=1, eval_final=False)
+        assert seen[0][3] == 9
 
     @pytest.mark.parametrize("dim", [0, 4])
     def test_unknown_dim_raises(self, dim):

@@ -217,3 +217,49 @@ class TestELLBatchMinor:
         mesh, ell, kB, FB, solveB = self._setup()
         with pytest.raises(ValueError, match="B, n_nodes"):
             solveB(mesh, ell, kB, FB[0], 0.0, 10)
+
+
+class TestKappaCotangent:
+    """The κ-gradient's element contraction in difference form."""
+
+    def test_equals_direct_contraction(self):
+        from difffe_tpu.ops.assembly import local_stiffness
+        from difffe_tpu.ops.unstructured import _kappa_cotangent
+        mesh = _irregular_mesh(5, seed=2)
+        rng = np.random.default_rng(0)
+        lam = jnp.asarray(rng.normal(size=(mesh.n_nodes, 3)))
+        u = jnp.asarray(rng.normal(size=(mesh.n_nodes, 3)))
+        G = local_stiffness(mesh, jnp.ones(mesh.n_elements))
+        el = mesh.elements
+        direct = -jnp.einsum("epb,epq,eqb->eb", lam[el], G, u[el])
+        np.testing.assert_allclose(np.asarray(_kappa_cotangent(mesh, lam, u)),
+                                   np.asarray(direct), atol=1e-12)
+
+    @pytest.mark.parametrize("batched", [False, True])
+    def test_float32_gradient_vs_f64_reference(self, batched):
+        """A float32 32×32 perturbed mesh: the adjoint κ-gradient stays
+        within 3e-5 (relative to its max) of a scipy f64 solve.  The
+        contraction −λᵀ(G u) read 1.2e-4 here."""
+        import chip_smoke as cs
+        from difffe_tpu.cli import invert_workload
+        from difffe_tpu.ops.unstructured import solve_poisson_cg_ell_batched
+        mesh, fB, u_data, k_true = invert_workload(2, 32, 2,
+                                                   unstructured=True)
+        kp = 0.5 * (1.0 + k_true)
+        if batched:
+            _, g_err, _ = cs.unstructured_parity(mesh, kp, fB, u_data, 512)
+        else:
+            ell = build_ell(mesh)
+            FB = assemble_load(mesh, fB)
+
+            def loss(k):
+                u = jax.vmap(lambda kk, F: solve_poisson_cg_ell(
+                    mesh, ell, kk, F, 0.0, 512))(k, FB)
+                return 0.5 * jnp.sum((u - u_data) ** 2)
+
+            g = jax.jit(jax.grad(loss))(kp)
+            refs = [cs.ref_solve_grad(mesh.nodes, mesh.elements,
+                                      mesh.bc_mask, mesh.bc_values, kp[b],
+                                      fB[b], u_data[b]) for b in range(2)]
+            g_err = cs.rel_err(g, [r[1] for r in refs])
+        assert g_err < 3e-5, g_err
